@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+Every source under gardenia_tpu_torch/csrc is compiled by nvcc, at first
+use, into one shared library with a plain C interface:
+
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+       -Xcompiler -fPIC -o _build/libgdn_kernels.so csrc/*.cu
+
+and loaded with ctypes (pointers as c_void_p, the stream from
+torch.cuda.current_stream().cuda_stream).  No PyTorch header is included,
+so a build takes seconds.  The library is rebuilt when the hash of the
+sources changes.  A missing nvcc or a failed build raises: there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libgdn_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, $PATH or /usr/local/cuda; raises if absent."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    if shutil.which("nvcc"):
+        cands.append(shutil.which("nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be "
+                       "built")
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into LIB_PATH unless it is current; return it."""
+    digest = _digest()
+    stamp = LIB_PATH + ".sha256"
+    if not force and os.path.exists(LIB_PATH) and os.path.exists(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == digest:
+                return LIB_PATH
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    with open(tmp, "w") as f:
+        f.write(digest)
+    os.replace(tmp, stamp)
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            so = ctypes.CDLL(build())
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            so.gdn_dense_panel_matmul.argtypes = [
+                vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
+            so.gdn_dense_panel_matmul.restype = ci
+            so.gdn_error_string.argtypes = [ci]
+            so.gdn_error_string.restype = ctypes.c_char_p
+            _LIB = so
+        return _LIB
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a kernel's C entry returned a CUDA error."""
+    if code != 0:
+        msg = lib().gdn_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
