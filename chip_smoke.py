@@ -6,17 +6,31 @@
 Phases, each printing its lines; any failure exits non-zero and prints no
 result:
   1. environment: nvidia-smi's name and power limit, torch, CUDA, nvcc;
-  2. build: compiles csrc/*.cu with nvcc (gardenia_tpu_torch/ops/_build.py);
+  2. build: compiles csrc/*.cu with nvcc, one process per source, in
+     parallel (gardenia_tpu_torch/ops/_build.py);
   3. kernel K1 (dense_panel_matmul) against its plain PyTorch version on
      the card, every width bucket of an R-MAT-16 hybrid layout at S = 1
      and 8 (int8 panels), plus f32- and bf16-panel layouts of weighted
      random graphs; limit max|diff| / max|y| < 1e-5.  Then pull PageRank
      on R-MAT-16 on the card against the serial numpy oracle;
-  4. the main path: the port's bench (python -m gardenia_tpu_torch.bench),
+  4. the PR main path: the port's bench (python -m gardenia_tpu_torch.bench),
      pull PageRank on R-MAT-20 over the hybrid layout — generate, relabel,
      build_hybrid, upload, pr_solver on cuda — with K1's launch count read
      around it, the oracle's residual, and one spmv_hybrid apply timed
-     with K1 and with the plain version.
+     with K1 and with the plain version;
+  5. triangle counting's kernels K3 (rot_count), K4 (merge_count) and H1
+     (bitmap_count) against their plain versions on the card, pair by
+     pair with exact integer equality, in every width class of the
+     R-MAT-16 streams, K3 and K4 each on every class (the routes that
+     MERGE_MIN_W = 256 and 8 take); then tc_solver on R-MAT-16 (rotate
+     under the three routings, and bsearch) against the serial oracle;
+  6. the TC main path: the port's bench (--kernel tc) on phase 4's
+     R-MAT-20 graph — orient, host prep, upload, tc_solver on cuda — with
+     the launch counts of K3, K4 and H1 read around it (classes x
+     solves), the count held to the JAX package's 424,573,866 and to the
+     plain route's and tc_bsearch's counts, then per class the kernel
+     against its plain version (pairs, ms in turns plain/kernel/kernel/
+     plain, GB/s of rows read, per-pair equality) and peak device memory.
 The line before the last is a JSON object with the kernels' launches,
 errors and times; the last line is {"ok": true, "device": {...}}.
 
@@ -38,6 +52,19 @@ MAIN_SCALE = 20             # the bench's default graph: |V| = 2^20
 K1_REL_LIMIT = 1e-5
 K1_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul.cu"
 K1_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:67"
+# triangle counting: wrapper name in ops/tc_count -> (kernel, source, the
+# TPU code it replaces; H1 replaces an XLA pass, there was no Pallas kernel)
+TC_KERNELS = {
+    "rot_count": ("K3", "gardenia_tpu_torch/csrc/tc_rot_count.cu",
+                  "gardenia_tpu/solvers/tc.py:197"),
+    "merge_count": ("K4", "gardenia_tpu_torch/csrc/tc_merge_count.cu",
+                    "gardenia_tpu/solvers/tc.py:303"),
+    "bitmap_count": ("H1", "gardenia_tpu_torch/csrc/tc_bitmap_count.cu",
+                     "gardenia_tpu/solvers/tc.py:351"),
+}
+# the JAX package's count on the bench's R-MAT-20 graph, in three rounds
+# (BENCH_SWEEP_r2.jsonl:7, BENCH_SWEEP_r3.jsonl:6, BENCH_SWEEP_r5.jsonl:6)
+TC_RMAT20_TRIANGLES = 424_573_866
 
 
 def fail(msg: str) -> None:
@@ -81,12 +108,15 @@ def weighted_graph(kind: str, scale: int = 14, seed: int = 3):
     return degree_relabel(from_edges(e, symmetrize=True)).graph
 
 
-def check_k1(hyb, label: str, S_list, dev, worst: dict) -> None:
-    """K1 against its plain version on every panel array of hyb."""
+def check_k1(hyb, label: str, S_list, dev, k1: dict) -> float:
+    """K1 against its plain version on every panel array of hyb: counts
+    the arrays checked and those at or over K1_REL_LIMIT into k1, and
+    returns the worst max|diff|."""
     import torch
     from gardenia_tpu_torch.ops import panel
     qx = max(int(p.src.max()) for p in hyb.dense) + 1
     rng = np.random.default_rng(7)
+    worst = 0.0
     for S in S_list:
         x3d = torch.from_numpy(
             rng.random((qx, 128, S)).astype(np.float32)).to(dev)
@@ -96,13 +126,61 @@ def check_k1(hyb, label: str, S_list, dev, worst: dict) -> None:
             torch.cuda.synchronize()
             err = float((y_k - y_p).abs().max())
             rel = err / max(1e-30, float(y_p.abs().max()))
-            worst["abs"] = max(worst["abs"], err)
+            worst = max(worst, err)
+            bad = not (np.isfinite(rel) and rel < K1_REL_LIMIT)
+            k1["arrays_checked"] += 1
+            k1["mismatches"] += int(bad)
             print(f"  K1 {label} {str(p.panel.dtype)[6:]} W={p.width:2d} "
                   f"R={p.src.shape[0]:6d} S={S}: max|diff| {err:.3e} "
                   f"rel {rel:.3e}")
-            if not (np.isfinite(rel) and rel < K1_REL_LIMIT):
+            if bad:
                 fail(f"K1 disagrees with its plain version ({label}, "
                      f"W={p.width}, S={S}): rel {rel}")
+    return worst
+
+
+def tc_pairs(data):
+    """(name, kernel fn, plain fn, pairs, bytes of rows read, class label)
+    for every pair stream of a TCData: H1 on the hub pairs, then K3 and
+    K4 each on every width class."""
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    out = []
+    if data.bitmap is not None:
+        bmp, hu, hv = data.bitmap
+        out.append(("bitmap_count", lambda: tcc.bitmap_count(bmp, hu, hv),
+                    lambda: tcc.bitmap_count_plain(bmp, hu, hv), len(hu),
+                    8 * bmp.shape[1] * len(hu), "hub"))
+    for W, (cu, cv) in sorted(data.streams.items()):
+        t = data.table
+        out.append(("rot_count",
+                    lambda t=t, cu=cu, cv=cv, W=W: tcc.rot_count(t, cu, cv, W),
+                    lambda t=t, cu=cu, cv=cv, W=W:
+                    tcc.rot_count_plain(t, cu, cv, W),
+                    len(cu), (512 + 4 * W) * len(cu), f"W{W}"))
+        out.append(("merge_count",
+                    lambda t=t, cu=cu, cv=cv: tcc.merge_count(t, cu, cv),
+                    lambda t=t, cu=cu, cv=cv: tcc.merge_count_plain(t, cu, cv),
+                    len(cu), 1024 * len(cu), f"W{W}"))
+    return out
+
+
+def tc_compare(name, y_k, y_p, label, stats) -> None:
+    """Exact per-pair equality of a TC kernel with its plain version."""
+    import torch
+    torch.cuda.synchronize()
+    if y_k.shape != y_p.shape or y_k.dtype != torch.int32:
+        fail(f"{TC_KERNELS[name][0]} {label}: shape/dtype {y_k.shape} "
+             f"{y_k.dtype} vs plain {y_p.shape} {y_p.dtype}")
+    diff = (y_k.long() - y_p.long()).abs()
+    bad = int((diff != 0).sum())
+    err = int(diff.max()) if diff.numel() else 0
+    st = stats[name]
+    st["mismatches"] += bad
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["pairs_checked"] += int(y_k.numel())
+    if bad:
+        fail(f"{TC_KERNELS[name][0]} {label}: {bad} of {y_k.numel()} pairs "
+             f"differ from the plain version (max |diff| {err})")
 
 
 def main() -> None:
@@ -142,7 +220,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. K1 against its plain version, on the card ---------------------
-    worst = {"abs": 0.0}
+    # panel arrays checked, and those at or over K1_REL_LIMIT
+    k1_stats = {"arrays_checked": 0, "mismatches": 0}
     g16 = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
                          symmetrize=True, need_reverse=True)
     g16r = degree_relabel(g16).graph
@@ -154,16 +233,17 @@ def main() -> None:
     if not hyb16.dense or any(p.panel.dtype != torch.int8
                               for p in hyb16.dense):
         fail("the R-MAT layout must hold int8 panels")
-    check_k1(hyb16, f"rmat{SMOKE_SCALE}", (1, 8), dev, worst)
+    worst = check_k1(hyb16, f"rmat{SMOKE_SCALE}", (1, 8), dev, k1_stats)
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gw = weighted_graph(kind)
         hw = bsr.build_hybrid(gw.rowptr, gw.colidx, gw.weights,
                               num_cols=gw.n, dense_threshold=16).to(dev)
         if not hw.dense or any(p.panel.dtype != dtype for p in hw.dense):
             fail(f"the weighted layout must hold {dtype} panels")
-        check_k1(hw, f"weighted-{kind}", (1, 8), dev, worst)
+        worst = max(worst, check_k1(hw, f"weighted-{kind}", (1, 8), dev,
+                                    k1_stats))
     print(f"[3] K1 matches its plain version in every bucket: worst "
-          f"max|diff| {worst['abs']:.3e}")
+          f"max|diff| {worst:.3e}")
     # the hybrid SpMV on the card against the serial oracle
     x16 = np.random.default_rng(1).random(g16r.n).astype(np.float32)
     y16 = bsr.spmv_hybrid(hyb16, torch.from_numpy(x16).to(dev),
@@ -231,20 +311,11 @@ def main() -> None:
     x3d = x3d.view(qx, 128, 1)
 
     # K1 against its plain version at the main path's shapes
-    main_abs = 0.0
-    for p in hyb.dense:
-        y_k = panel.dense_panel_matmul(p.panel, p.src, x3d, 1)
-        y_p = panel.dense_panel_matmul_plain(p.panel, p.src, x3d, 1)
-        torch.cuda.synchronize()
-        err = float((y_k - y_p).abs().max())
-        rel = err / max(1e-30, float(y_p.abs().max()))
-        main_abs = max(main_abs, err)
-        if not (np.isfinite(rel) and rel < K1_REL_LIMIT):
-            fail(f"K1 disagrees with its plain version at rmat{MAIN_SCALE} "
-                 f"W={p.width}: rel {rel}")
-        del y_k, y_p
+    main_abs = check_k1(hyb, f"rmat{MAIN_SCALE}", (1,), dev, k1_stats)
     print(f"[4] K1 vs plain on the rmat{MAIN_SCALE} panels, S=1: max|diff| "
-          f"{main_abs:.3e} (limit {K1_REL_LIMIT} x max|y| per panel array)")
+          f"{main_abs:.3e} (limit {K1_REL_LIMIT} x max|y| per panel array); "
+          f"{k1_stats['mismatches']} of {k1_stats['arrays_checked']} panel "
+          f"arrays checked in all over the limit")
 
     def dense(fn):
         return lambda: [fn(p.panel, p.src, x3d, 1) for p in hyb.dense]
@@ -277,11 +348,137 @@ def main() -> None:
           + json.dumps({k: [round(v, 4) for v in vs]
                         for k, vs in t.items()}) + ")")
 
-    print(json.dumps({"kernels": [{
+    # ---- 5. TC kernels against their plain versions; R-MAT-16 TC --------
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    from gardenia_tpu_torch.solvers import tc
+    stats = {name: {"mismatches": 0, "max_abs_err": 0, "pairs_checked": 0}
+             for name in TC_KERNELS}
+    data16 = tc.tc_data(tc.tc_dag(g16), True, dev)
+    if data16.bitmap is None or len(data16.streams) != len(tc.ROT_WIDTHS):
+        fail(f"rmat{SMOKE_SCALE} must give hub pairs and every width class")
+    for name, k_fn, p_fn, n, _, label in tc_pairs(data16):
+        tc_compare(name, k_fn(), p_fn(), label, stats)
+        print(f"[5] {TC_KERNELS[name][0]} rmat{SMOKE_SCALE} {label:>4}: "
+              f"{n:7d} pairs, equal to the plain version")
+    want16 = oracles.tc_serial(g16.oriented())
+    keep_mmw = tc.MERGE_MIN_W
+    try:
+        for mmw in (keep_mmw, 256, 8):
+            tc.MERGE_MIN_W = mmw
+            got = tc.tc_solver(g16, device=dev)
+            print(f"[5] tc rotate rmat{SMOKE_SCALE}, MERGE_MIN_W={mmw}: "
+                  f"{got} (serial oracle {want16})")
+            if got != want16:
+                fail(f"TC rotate (MERGE_MIN_W={mmw}) counts {got}, the "
+                     f"serial oracle {want16}")
+    finally:
+        tc.MERGE_MIN_W = keep_mmw
+    got = tc.tc_solver(g16, variant="bsearch", device=dev)
+    print(f"[5] tc bsearch rmat{SMOKE_SCALE}: {got}")
+    if got != want16:
+        fail(f"TC bsearch counts {got}, the serial oracle {want16}")
+
+    # ---- 6. the TC main path: the bench's TC at R-MAT-20 ------------------
+    t0 = time.perf_counter()
+    dag = tc.tc_dag(g)                  # relabel cached by phase 4, orient
+    t_orient = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = tc.tc_data(dag, True, dev)   # chunk table, bitmap, streams
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    print(f"[6] host set-up: orient {t_orient:.1f} s, prep + upload "
+          f"{t_prep:.1f} s; DAG edges {dag.nnz}, chunk rows "
+          f"{data.table.shape[0] - 1}, hub bitmap "
+          f"{tuple(data.bitmap[0].shape) if data.bitmap else None}")
+    solves = bench.TC_WARMUP + bench.TC_ITERS
+    tcc.reset_launches()
+    record, g, total = bench.bench_tc(MAIN_SCALE, dev, g=g)
+    tc_launches = dict(tcc.LAUNCHES)
+    print(json.dumps(record))
+    peak_tc = torch.cuda.max_memory_allocated() - resident
+    n_rot = sum(1 for W in data.streams if W < tc.MERGE_MIN_W)
+    want_launches = {"rot_count": n_rot * solves,
+                     "merge_count": (len(data.streams) - n_rot) * solves,
+                     "bitmap_count": (data.bitmap is not None) * solves}
+    print(f"[6] rmat{MAIN_SCALE}: {total} triangles, launches {tc_launches}"
+          f" over {solves} solves, peak device memory of TC "
+          f"{peak_tc / 2**30:.3f} GiB above the {resident / 2**30:.2f} GiB "
+          f"resident before it")
+    if tc_launches != want_launches or 0 in tc_launches.values():
+        fail(f"TC launches {tc_launches} != classes x solves "
+             f"{want_launches}")
+    if total != TC_RMAT20_TRIANGLES:
+        fail(f"TC counts {total} triangles at rmat{MAIN_SCALE}, the JAX "
+             f"package {TC_RMAT20_TRIANGLES}")
+    # the plain route: the solver with every wrapper swapped for its plain
+    # version; no kernel may launch
+    kernels = (tcc.rot_count, tcc.merge_count, tcc.bitmap_count)
+    tcc.rot_count, tcc.merge_count, tcc.bitmap_count = (
+        tcc.rot_count_plain, tcc.merge_count_plain, tcc.bitmap_count_plain)
+    try:
+        t0 = time.perf_counter()
+        plain_total = tc.tc_solver(g, device=dev, chunk=1 << 16)
+        t_plain = time.perf_counter() - t0
+    finally:
+        tcc.rot_count, tcc.merge_count, tcc.bitmap_count = kernels
+    t0 = time.perf_counter()
+    bs_total = tc.tc_solver(g, variant="bsearch", device=dev, chunk=1 << 22)
+    t_bs = time.perf_counter() - t0
+    print(f"[6] plain route {plain_total} ({t_plain:.2f} s), tc_bsearch "
+          f"{bs_total} ({t_bs:.2f} s), launches after {dict(tcc.LAUNCHES)}")
+    if tcc.LAUNCHES != tc_launches:
+        fail("a TC kernel launched on the plain route")
+    if not plain_total == bs_total == total:
+        fail(f"TC routes disagree: kernels {total}, plain {plain_total}, "
+             f"bsearch {bs_total}")
+
+    # per class at the main path's shapes: the routed kernel against its
+    # plain version, in turns (plain, kernel, kernel, plain) on this card
+    tc_ms = {name: {"ms": 0.0, "plain_ms": 0.0} for name in TC_KERNELS}
+    breakdown = []
+    for name, k_fn, p_fn, n, nbytes, label in tc_pairs(data):
+        W = int(label[1:]) if label != "hub" else None
+        if W is not None and (name == "merge_count") != (
+                W >= tc.MERGE_MIN_W):
+            continue                        # not the route the solver takes
+        tc_compare(name, k_fn(), p_fn(), f"rmat{MAIN_SCALE} {label}", stats)
+        t = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            t[which].append(cuda_ms(k_fn if which == "kernel" else p_fn,
+                                    reps=10 if which == "kernel" else 2,
+                                    warmup=1))
+        k_ms, p_ms = (sum(t[w]) / 2 for w in ("kernel", "plain"))
+        tc_ms[name]["ms"] += k_ms
+        tc_ms[name]["plain_ms"] += p_ms
+        breakdown.append({"class": label, "kernel": TC_KERNELS[name][0],
+                          "pairs": n, "ms": k_ms, "plain_ms": p_ms,
+                          "gb_per_s": nbytes / k_ms / 1e6,
+                          "runs": {w: [round(v, 4) for v in vs]
+                                   for w, vs in t.items()}})
+        print(f"[6] {TC_KERNELS[name][0]} {label:>4}: {n:8d} pairs, kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, rows read "
+              f"{nbytes / 1e9:.3f} GB -> {nbytes / k_ms / 1e6:.0f} GB/s")
+    print(f"[6] gpu: {gpu}")
+    print("[6] tc breakdown " + json.dumps(breakdown))
+    print("[6] TC kernels vs plain: " + json.dumps(stats))
+
+    entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
+        "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
-        "plain_ms": ms["dense_plain"]}]}))
+        "plain_ms": ms["dense_plain"]}]
+    for name, (_, source, replaces) in TC_KERNELS.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": tc_launches[name],
+            "mismatches": stats[name]["mismatches"],
+            "max_abs_err": stats[name]["max_abs_err"],
+            "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,14 +3,21 @@ the repo's bench.py:
   {"metric": "pr_pull_gteps_rmat{scale}", "value": N, "unit": "GTEPS",
    "vs_baseline": N, "detail": {"iters", "ms", "nnz", "m", ...}}
 
-Pull PageRank GTEPS (edges x iterations / solve time, best of 3 after one
-warm-up solve that also builds and uploads the layout) on a Graph500
-R-MAT graph, symmetrized (scale 20: |V| = 1,048,576).  vs_baseline is
-against the same 2.0 GTEPS constant as bench.py.  The graph is generated
-anew from the generator's fixed seed in every run; nothing is cached on
-disk.  `detail.device` names the card the number was taken on.
+Kernels, each on a Graph500 R-MAT graph, symmetrized (scale 20: |V| =
+1,048,576), with the formula, repeats and baseline constant of the
+repo's bench.py:
+  pr — pull PageRank GTEPS: edges x iterations / solve time, best of 3
+       after one warm-up solve that also builds and uploads the layout;
+       vs 2.0 GTEPS.
+  tc — `tc_meps_rmat{scale}`: edges / solve time / 1e6, best of 2 after
+       one warm-up solve that also relabels, preps and uploads; vs 2000
+       M edges/s; detail.triangles is the count.
+The graph is generated anew from the generator's fixed seed in every
+run; nothing is cached on disk.  `detail.device` names the card the
+number was taken on.  Numbers are printed unrounded: a slow CPU rate
+must not round to 0.
 
-Run: python -m gardenia_tpu_torch.bench [--kernel pr] [--scale 20]
+Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc}] [--scale 20]
                                         [--device cuda]
 """
 
@@ -24,8 +31,10 @@ import torch
 
 from gardenia_tpu_torch import resolve_device
 
-BASELINE_GTEPS = 2.0      # the constant of the repo's bench.py
-WARMUP, ITERS = 1, 3      # untimed solves (layout build, upload), timed
+BASELINE_GTEPS = 2.0      # the constants of the repo's bench.py
+BASELINE_TC_MEPS = 2000.0
+WARMUP, ITERS = 1, 3      # pr: untimed solves (layout build, upload), timed
+TC_WARMUP, TC_ITERS = 1, 2    # tc: the same, as bench.py:253-263
 
 
 def get_graph(scale: int):
@@ -52,15 +61,34 @@ def bench_pr(scale: int, device="cuda", g=None):
                         iters=ITERS, device=dev)
     gteps = g.nnz * res.iterations / secs / 1e9
     record = {"metric": f"pr_pull_gteps_rmat{scale}",
-              "value": round(gteps, 4), "unit": "GTEPS",
-              "vs_baseline": round(gteps / BASELINE_GTEPS, 4),
+              "value": gteps, "unit": "GTEPS",
+              "vs_baseline": gteps / BASELINE_GTEPS,
               "detail": {"iters": res.iterations,
-                         "ms": round(secs * 1e3, 3), "nnz": g.nnz,
+                         "ms": secs * 1e3, "nnz": g.nnz,
                          "m": g.m, "device": device_name(dev)}}
     return record, g, res
 
 
-KERNELS = {"pr": bench_pr}
+def bench_tc(scale: int, device="cuda", g=None):
+    """(record, graph, triangle count) of the TC benchmark; g, when given,
+    is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.solvers.tc import tc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    total, secs = time_op(lambda: tc_solver(g, device=dev),
+                          warmup=TC_WARMUP, iters=TC_ITERS, device=dev)
+    meps = g.nnz / secs / 1e6
+    record = {"metric": f"tc_meps_rmat{scale}", "value": meps,
+              "unit": "M edges/s", "vs_baseline": meps / BASELINE_TC_MEPS,
+              "detail": {"triangles": int(total),
+                         "ms": secs * 1e3, "nnz": g.nnz,
+                         "m": g.m, "device": device_name(dev)}}
+    return record, g, total
+
+
+KERNELS = {"pr": bench_pr, "tc": bench_tc}
 
 
 def main(argv=None):
@@ -71,7 +99,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     t0 = time.time()
     record, _, _ = KERNELS[args.kernel](args.scale, args.device)
-    record["detail"]["total_s"] = round(time.time() - t0, 1)
+    record["detail"]["total_s"] = time.time() - t0
     print(json.dumps(record))
 
 

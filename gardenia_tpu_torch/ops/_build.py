@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
 Every source under gardenia_tpu_torch/csrc is compiled by nvcc, at first
-use, into one shared library with a plain C interface:
+use, into one shared library with a plain C interface — one nvcc per
+source, all started together, then one link:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-       -Xcompiler -fPIC -o _build/libgdn_kernels.so csrc/*.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+       -Xcompiler -fPIC -c csrc/<name>.cu -o <obj>   (each source)
+  nvcc ... -shared -o _build/libgdn_kernels.so <objs>
 
 and loaded with ctypes (pointers as c_void_p, the stream from
 torch.cuda.current_stream().cuda_stream).  No PyTorch header is included,
@@ -22,13 +24,14 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgdn_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -63,6 +66,13 @@ def find_nvcc() -> str:
                        "built")
 
 
+def _nvcc(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+
+
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is current; return it."""
     digest = _digest()
@@ -74,11 +84,17 @@ def build(force: bool = False) -> str:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    srcs = sources()
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    try:
+        with ThreadPoolExecutor(max(1, len(srcs))) as pool:
+            list(pool.map(_nvcc, ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                                  for src, obj in zip(srcs, objs))))
+        _nvcc([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
     with open(tmp, "w") as f:
         f.write(digest)
@@ -96,6 +112,14 @@ def lib() -> ctypes.CDLL:
             so.gdn_dense_panel_matmul.argtypes = [
                 vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
             so.gdn_dense_panel_matmul.restype = ci
+            ll = ctypes.c_longlong
+            # (rows, first index, second index, out, n, [W|wpad,] stream)
+            for name, extra in (("gdn_tc_rot_count", [ci]),
+                                ("gdn_tc_merge_count", []),
+                                ("gdn_tc_bitmap_count", [ci])):
+                fn = getattr(so, name)
+                fn.argtypes = [vp, vp, vp, vp, ll, *extra, vp]
+                fn.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

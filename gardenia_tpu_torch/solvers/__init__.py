@@ -1,1 +1,2 @@
-"""Solvers of the port, one module per GARDENIA kernel (slice 1: pr)."""
+"""Solvers of the port, one module per GARDENIA kernel (slice 1: pr,
+slice 2: tc)."""
