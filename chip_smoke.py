@@ -30,9 +30,27 @@ result:
      solves), the count held to the JAX package's 424,573,866 and to the
      plain route's and tc_bsearch's counts, then per class the kernel
      against its plain version (pairs, ms in turns plain/kernel/kernel/
-     plain, GB/s of rows read, per-pair equality) and peak device memory.
-The line before the last is a JSON object with the kernels' launches,
-errors and times; the last line is {"ok": true, "device": {...}}.
+     plain, GB/s of rows read, per-pair equality) and peak device memory;
+  7. connected components' kernel K2 (dense_panel_minselect) against its
+     plain version on the card, exact, in every panel array of the
+     R-MAT-16 layout, of the f32 and bf16 weighted layouts and of the
+     R-MAT-20 layout; then cc_sv (hybrid and ell layouts) and cc_afforest
+     on uniform-14, whose cc_sv takes a dense round and so launches K2
+     inside the solve (its launch count must be > 0), each held to the
+     serial oracle by the CLI's bijection check;
+  8. the CC main path: the port's bench (--kernel cc), cc_sv on phase 4's
+     R-MAT-20 graph, with K2's launch count read around it (0 when no
+     round is dense), its components held to the serial oracle and
+     cc_afforest's and the ell layout's agreeing; then the dense sweep
+     itself, spmv_hybrid_min_select on the R-MAT-20 layout with identity
+     labels, against the plain route and an ELL-only min-select of the
+     same matrix, exact, and timed (K2 alone, plain alone, whole sweeps)
+     with CUDA events in turns plain/kernel/kernel/plain.
+The line before the last is a JSON object with every kernel's launches,
+error, times and bound (bound_ms: the larger of the bytes each input and
+output moves once over 3.35 TB/s and the operations over the card's
+non-tensor peak, from this run's inputs); the last line is
+{"ok": true, "device": {...}}.
 
 Needs CUDA: without a card, or without the repository around it, it
 exits non-zero.
@@ -49,9 +67,18 @@ import numpy as np
 
 SMOKE_SCALE = 16            # K1's width buckets and the oracle check
 MAIN_SCALE = 20             # the bench's default graph: |V| = 2^20
+CC_UNIFORM_SCALE = 14       # cc_sv takes a dense round there (K2 runs)
 K1_REL_LIMIT = 1e-5
 K1_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul.cu"
 K1_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:67"
+K2_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_minselect.cu"
+K2_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:113"
+SENT = 2 ** 31 - 1          # the min-select sentinel (INT32_MAX)
+# published peaks of one H100 SXM (NVIDIA's H100 datasheet): device
+# memory bytes/s, and the non-tensor f32 rate, taken for the CUDA-core
+# integer and f32 work of every kernel here (none uses tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
 # triangle counting: wrapper name in ops/tc_count -> (kernel, source, the
 # TPU code it replaces; H1 replaces an XLA pass, there was no Pallas kernel)
 TC_KERNELS = {
@@ -98,9 +125,9 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def weighted_graph(kind: str, scale: int = 14, seed: int = 3):
     """Degree-relabelled symmetric R-MAT graph with numpy weights that
     make f32 (fractional) or bf16 (integers 128..255) panels."""
-    from gardenia_tpu.core.generate import rmat_edges
-    from gardenia_tpu.core.graph import from_edges
-    from gardenia_tpu.core.relabel import degree_relabel
+    from gardenia_tpu_torch.core.generate import rmat_edges
+    from gardenia_tpu_torch.core.graph import from_edges
+    from gardenia_tpu_torch.core.relabel import degree_relabel
     e = rmat_edges(scale, degree=16, seed=seed)
     rng = np.random.default_rng(seed)
     e.wt = (rng.random(len(e.src)) + 0.5 if kind == "f32"
@@ -137,6 +164,59 @@ def check_k1(hyb, label: str, S_list, dev, k1: dict) -> float:
                 fail(f"K1 disagrees with its plain version ({label}, "
                      f"W={p.width}, S={S}): rel {rel}")
     return worst
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the vector peak."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / VECTOR_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def panel_work(hyb, x_bytes: int) -> tuple:
+    """(bytes, cells, nonzero cells) of one sweep over hyb's panel arrays:
+    each panel, block table and 4-byte output once, plus the operand
+    once."""
+    nbytes, cells, nnz = x_bytes, 0, 0
+    for p in hyb.dense:
+        nbytes += (p.panel.numel() * p.panel.element_size()
+                   + p.src.numel() * 4
+                   + p.src.shape[0] * 128 * 4)
+        cells += p.panel.numel()
+        nnz += int((p.panel != 0).sum())
+    return nbytes, cells, nnz
+
+
+def check_k2(hyb, label: str, dev, k2: dict) -> None:
+    """K2 against its plain version on every panel array of hyb, with
+    random labels (the sentinel in the last pad slots): exact."""
+    import torch
+    from gardenia_tpu_torch.ops import minselect
+    qx = max(int(p.src.max()) for p in hyb.dense) + 1
+    x2d = np.full(qx * 128, SENT, np.int32)
+    x2d[:-5] = np.random.default_rng(17).integers(0, 1 << 30,
+                                                  qx * 128 - 5)
+    x2d = torch.from_numpy(x2d.reshape(qx, 128)).to(dev)
+    for p in hyb.dense:
+        y_k = minselect.dense_panel_minselect(p.panel, p.src, x2d, SENT)
+        y_p = minselect.dense_panel_minselect_plain(p.panel, p.src, x2d,
+                                                    SENT)
+        torch.cuda.synchronize()
+        if y_k.shape != y_p.shape or y_k.dtype != torch.int32:
+            fail(f"K2 {label}: shape/dtype {y_k.shape} {y_k.dtype} vs "
+                 f"plain {y_p.shape} {y_p.dtype}")
+        diff = (y_k.long() - y_p.long()).abs()
+        bad = int((diff != 0).sum())
+        k2["arrays_checked"] += 1
+        k2["rows_checked"] += int(y_k.numel())
+        k2["mismatches"] += bad
+        k2["max_abs_err"] = max(k2["max_abs_err"], int(diff.max()))
+        print(f"  K2 {label} {str(p.panel.dtype)[6:]} W={p.width:2d} "
+              f"R={p.src.shape[0]:6d}: {bad} of {y_k.numel()} rows differ")
+        if bad:
+            fail(f"K2 disagrees with its plain version ({label}, "
+                 f"W={p.width}): {bad} rows")
 
 
 def tc_pairs(data):
@@ -189,9 +269,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA GPU")
     import gardenia_tpu_torch                         # the repository
-    from gardenia_tpu.core.generate import generate_graph
-    from gardenia_tpu.core.relabel import degree_relabel
-    from gardenia_tpu.verify import oracles
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.core.relabel import degree_relabel
+    from gardenia_tpu_torch.verify import oracles
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.core import views
     from gardenia_tpu_torch.ops import _build, bsr, panel
@@ -234,10 +314,12 @@ def main() -> None:
                               for p in hyb16.dense):
         fail("the R-MAT layout must hold int8 panels")
     worst = check_k1(hyb16, f"rmat{SMOKE_SCALE}", (1, 8), dev, k1_stats)
+    weighted = {}                       # phase 7 checks K2 on them too
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gw = weighted_graph(kind)
         hw = bsr.build_hybrid(gw.rowptr, gw.colidx, gw.weights,
                               num_cols=gw.n, dense_threshold=16).to(dev)
+        weighted[kind] = hw
         if not hw.dense or any(p.panel.dtype != dtype for p in hw.dense):
             fail(f"the weighted layout must hold {dtype} panels")
         worst = max(worst, check_k1(hw, f"weighted-{kind}", (1, 8), dev,
@@ -437,13 +519,26 @@ def main() -> None:
 
     # per class at the main path's shapes: the routed kernel against its
     # plain version, in turns (plain, kernel, kernel, plain) on this card
-    tc_ms = {name: {"ms": 0.0, "plain_ms": 0.0} for name in TC_KERNELS}
+    # bound per routed class: the table (or bitmap) and the pair streams
+    # each moved once; operations as the kernels do them — K3 W*128
+    # compares a pair, K4 128 binary searches of 7 steps, H1 an AND and a
+    # popcount per 32-bit word of a row
+    tc_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+             for name in TC_KERNELS}
     breakdown = []
     for name, k_fn, p_fn, n, nbytes, label in tc_pairs(data):
         W = int(label[1:]) if label != "hub" else None
         if W is not None and (name == "merge_count") != (
                 W >= tc.MERGE_MIN_W):
             continue                        # not the route the solver takes
+        if W is None:
+            words = data.bitmap[0].shape[1]
+            tc_ms[name]["bytes"] += data.bitmap[0].numel() * 4 + 12 * n
+            tc_ms[name]["ops"] += 2 * words * n
+        else:
+            tc_ms[name]["bytes"] += data.table.numel() * 4 + 12 * n
+            tc_ms[name]["ops"] += (W * 128 if name == "rot_count"
+                                   else 128 * 7) * n
         tc_compare(name, k_fn(), p_fn(), f"rmat{MAIN_SCALE} {label}", stats)
         t = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
@@ -465,19 +560,159 @@ def main() -> None:
     print("[6] tc breakdown " + json.dumps(breakdown))
     print("[6] TC kernels vs plain: " + json.dumps(stats))
 
+    # ---- 7. K2 against its plain version; CC on uniform-14 ---------------
+    from gardenia_tpu_torch.cli import same_components
+    from gardenia_tpu_torch.ops import minselect
+    from gardenia_tpu_torch.ops.semiring import I32_MIN_SELECT2
+    from gardenia_tpu_torch.ops.spmv import spmv_ell
+    from gardenia_tpu_torch.solvers import cc
+    k2_stats = {"arrays_checked": 0, "rows_checked": 0, "mismatches": 0,
+                "max_abs_err": 0}
+    check_k2(hyb16, f"rmat{SMOKE_SCALE}", dev, k2_stats)
+    for kind, hw in weighted.items():
+        check_k2(hw, f"weighted-{kind}", dev, k2_stats)
+    check_k2(hyb, f"rmat{MAIN_SCALE}", dev, k2_stats)
+    print(f"[7] K2 vs plain, exact: {json.dumps(k2_stats)}")
+
+    def cc_check(phase, label, res, m, want) -> None:
+        comp = res.comp.cpu().numpy()
+        ok = comp.shape == (m,) and same_components(comp, want)
+        print(f"[{phase}] {label}: {res.iterations} rounds, "
+              f"{len(np.unique(comp))} "
+              f"components (serial oracle {len(np.unique(want))}): "
+              f"{'Correct' if ok else 'Wrong'}")
+        if not ok:
+            fail(f"CC {label} disagrees with the serial oracle")
+
+    gu = generate_graph("uniform", scale=CC_UNIFORM_SCALE)
+    want_u = oracles.cc_serial(gu)
+    minselect.LAUNCHES = 0
+    res_u = cc.cc_sv(gu, layout="hybrid", device=dev)
+    k2_uniform = minselect.LAUNCHES
+    gu_panels = len(views.hybrid(views.relabel_maps(gu, dev)[0], dev).dense)
+    lbl = f"uniform{CC_UNIFORM_SCALE}"
+    cc_check(7, f"cc_sv hybrid {lbl}", res_u, gu.m, want_u)
+    cc_check(7, f"cc_sv ell {lbl}", cc.cc_sv(gu, layout="ell", device=dev),
+             gu.m, want_u)
+    cc_check(7, f"cc_afforest {lbl}", cc.cc_afforest(gu, device=dev), gu.m,
+             want_u)
+    print(f"[7] {lbl}: |V| {gu.m} |E| {gu.nnz}; K2 launches in the cc_sv "
+          f"hybrid solve {k2_uniform} ({gu_panels} panel arrays x dense "
+          f"rounds)")
+    if k2_uniform == 0 or k2_uniform % gu_panels:
+        fail(f"K2 launched {k2_uniform} times in the {lbl} cc_sv solve")
+
+    # ---- 8. the CC main path: the bench's CC at R-MAT-20 ------------------
+    solves = bench.WARMUP + bench.ITERS
+    minselect.LAUNCHES = 0
+    record, g, res_cc = bench.bench_cc(MAIN_SCALE, dev, g=g)
+    k2_bench = minselect.LAUNCHES
+    print(json.dumps(record))
+    print(f"[8] rmat{MAIN_SCALE}: {res_cc.iterations} rounds, K2 launches "
+          f"{k2_bench} over {solves} solves (0 unless a round is dense)")
+    t0 = time.perf_counter()
+    want = oracles.cc_serial(g)
+    print(f"[8] serial oracle {time.perf_counter() - t0:.1f} s")
+    cc_check(8, f"cc_sv hybrid rmat{MAIN_SCALE}", res_cc, g.m, want)
+    cc_check(8, f"cc_sv ell rmat{MAIN_SCALE}",
+             cc.cc_sv(g, layout="ell", device=dev), g.m, want)
+    cc_check(8, f"cc_afforest rmat{MAIN_SCALE}",
+             cc.cc_afforest(g, device=dev), g.m, want)
+
+    # the dense sweep at the main path's shapes, identity labels: K2's
+    # route against the plain route and an ELL-only min-select of the
+    # same matrix, then timed in turns (plain, K2, K2, plain)
+    g2 = views.relabel_maps(g, dev)[0]
+    if views.hybrid(g2, dev) is not hyb:
+        fail("CC's forward hybrid is not the PR layout's cache entry")
+    ell2 = views.ell(g2, dev)
+    ident = torch.arange(g.m, dtype=torch.int32, device=dev)
+    qx = (g.n + 127) // 128
+    x2d = torch.full((qx * 128,), SENT, dtype=torch.int32, device=dev)
+    x2d[:g.n] = ident
+    x2d = x2d.view(qx, 128)
+    k2, k2_plain = (minselect.dense_panel_minselect,
+                    minselect.dense_panel_minselect_plain)
+
+    def k2_dense(fn):
+        return lambda: [fn(p.panel, p.src, x2d, SENT) for p in hyb.dense]
+
+    def k2_sweep(fn):
+        def go():
+            keep, minselect.dense_panel_minselect = \
+                minselect.dense_panel_minselect, fn
+            try:
+                return bsr.spmv_hybrid_min_select(hyb, ident, num_rows=g.m,
+                                                  sentinel=SENT)
+            finally:
+                minselect.dense_panel_minselect = keep
+        return go
+
+    def ell_sweep():
+        return spmv_ell(ell2, ident, semiring=I32_MIN_SELECT2, num_rows=g.m)
+
+    y_k, y_p, y_e = k2_sweep(k2)(), k2_sweep(k2_plain)(), ell_sweep()
+    bad_p = int((y_k != y_p).sum())
+    bad_e = int((y_k != y_e).sum())
+    print(f"[8] min-select sweep rmat{MAIN_SCALE}: K2 route vs plain route "
+          f"{bad_p} rows differ, vs ELL-only {bad_e} rows differ")
+    if bad_p or bad_e:
+        fail("the min-select sweep's routes disagree")
+    t = {"dense_plain": [], "dense_k2": [], "sweep_plain": [],
+         "sweep_k2": [], "sweep_ell": []}
+    for which in ("plain", "k2", "k2", "plain"):
+        fn = k2 if which == "k2" else k2_plain
+        reps = 10 if which == "k2" else 2
+        t[f"dense_{which}"].append(cuda_ms(k2_dense(fn), reps=reps,
+                                           warmup=1))
+        t[f"sweep_{which}"].append(cuda_ms(k2_sweep(fn), reps=reps,
+                                           warmup=1))
+        if which == "k2":
+            t["sweep_ell"].append(cuda_ms(ell_sweep, reps=reps, warmup=1))
+    cc_ms = {k: sum(v) / len(v) for k, v in t.items()}
+    k2_bytes, cells, nz = panel_work(hyb, qx * 128 * 4)
+    k2_bound = bound(k2_bytes, cells + nz)
+    print(f"[8] gpu: {gpu}")
+    print(f"[8] dense panels, one sweep: K2 {cc_ms['dense_k2']:.3f} ms, plain"
+          f" {cc_ms['dense_plain']:.3f} ms; {k2_bytes / 1e9:.3f} GB moved "
+          f"once -> K2 {k2_bytes / cc_ms['dense_k2'] / 1e6:.0f} GB/s, bound "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}); {nz} nonzero of {cells} "
+          f"cells")
+    print(f"[8] min-select sweep, one apply: with K2 {cc_ms['sweep_k2']:.3f}"
+          f" ms, with plain {cc_ms['sweep_plain']:.3f} ms, ELL only "
+          f"{cc_ms['sweep_ell']:.3f} ms (runs "
+          + json.dumps({k: [round(v, 4) for v in vs]
+                        for k, vs in t.items()}) + ")")
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
-        "plain_ms": ms["dense_plain"]}]
+        "plain_ms": ms["dense_plain"],
+        # the same bytes as K2's sweep (S = 1: one f32 out per row), a
+        # multiply and an add per cell
+        **dict(zip(("bound_ms", "bound_by"), bound(k2_bytes, 2 * cells))),
+        "library_ms": None}, {
+        "name": "dense_panel_minselect", "route": "cuda",
+        "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": k2_bench + k2_uniform,
+        "launches_by_path": {f"cc bench rmat{MAIN_SCALE}": k2_bench,
+                             f"cc_sv uniform{CC_UNIFORM_SCALE}": k2_uniform},
+        "mismatches": k2_stats["mismatches"],
+        "max_abs_err": k2_stats["max_abs_err"], "ms": cc_ms["dense_k2"],
+        "plain_ms": cc_ms["dense_plain"],
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+        "library_ms": None}]
     for name, (_, source, replaces) in TC_KERNELS.items():
+        b_ms, b_by = bound(tc_ms[name]["bytes"], tc_ms[name]["ops"])
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": tc_launches[name],
             "mismatches": stats[name]["mismatches"],
             "max_abs_err": stats[name]["max_abs_err"],
-            "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"]})
+            "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

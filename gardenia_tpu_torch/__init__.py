@@ -1,11 +1,11 @@
 """gardenia_tpu_torch — the PyTorch/CUDA port of gardenia_tpu (NVIDIA Hopper).
 
 The JAX package `gardenia_tpu` stays the reference.  This package imports
-torch and never jax: host code that is jax-free (`gardenia_tpu.core`,
-`gardenia_tpu.native`, `gardenia_tpu.verify`) is imported from the
-reference, and everything that touches a device is written here in
-PyTorch, with hand-written CUDA kernels under `csrc/` where the reference
-had a Pallas kernel.
+torch, never jax, and nothing of `gardenia_tpu`: the reference's host code
+(`core`, `native`, `verify`) has its copies here under the same module
+names, and everything that touches a device is written here in PyTorch,
+with hand-written CUDA kernels under `csrc/` where the reference had a
+Pallas kernel.
 
 Slice 1 is pull PageRank on the degree-relabelled hybrid layout:
   core/views -> ops/bsr.spmv_hybrid (ops/panel K1 + ops/spmv.spmv_ell)
@@ -14,6 +14,11 @@ Slice 2 is triangle counting:
   solvers/tc host prep (numpy) -> ops/tc_count (H1 bitmap, K3 rotation
   count, K4 merge count) -> solvers/tc.tc_solver -> cli / bench; the
   bsearch variant runs ops/intersect in plain torch.
+Slice 3 is connected components:
+  core/views (relabel maps, hybrid/ELL, CSR) -> solvers/cc.cc_sv (ops/
+  pointer_jump, ops/frontier sparse rounds; dense rounds through
+  ops/bsr.spmv_hybrid_min_select = ops/minselect K2 + the ELL min-select)
+  and cc_afforest -> cli / bench.
 """
 
 from __future__ import annotations

@@ -12,12 +12,17 @@ repo's bench.py:
   tc — `tc_meps_rmat{scale}`: edges / solve time / 1e6, best of 2 after
        one warm-up solve that also relabels, preps and uploads; vs 2000
        M edges/s; detail.triangles is the count.
+  cc — `cc_sv_ms_rmat{scale}`: ms of cc_sv on the hybrid layout, best of
+       3 after one warm-up solve that also relabels, builds and uploads;
+       vs_baseline = 1.0 ms per M edges / the measured ms per M edges;
+       detail.rounds, and detail.k2_launches — K2's launches over the 4
+       solves (0 when no round is dense).
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
 must not round to 0.
 
-Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc}] [--scale 20]
+Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc,cc}] [--scale 20]
                                         [--device cuda]
 """
 
@@ -33,13 +38,15 @@ from gardenia_tpu_torch import resolve_device
 
 BASELINE_GTEPS = 2.0      # the constants of the repo's bench.py
 BASELINE_TC_MEPS = 2000.0
-WARMUP, ITERS = 1, 3      # pr: untimed solves (layout build, upload), timed
+BASELINE_CC_MS_PER_MEDGE = 1.0
+# pr and cc: untimed solves (layout build, upload), then timed solves
+WARMUP, ITERS = 1, 3
 TC_WARMUP, TC_ITERS = 1, 2    # tc: the same, as bench.py:253-263
 
 
 def get_graph(scale: int):
     """Symmetrized Graph500 R-MAT graph of 2^scale vertices, degree 16."""
-    from gardenia_tpu.core.generate import generate_graph
+    from gardenia_tpu_torch.core.generate import generate_graph
     return generate_graph("rmat", scale=scale, degree=16, symmetrize=True)
 
 
@@ -88,7 +95,29 @@ def bench_tc(scale: int, device="cuda", g=None):
     return record, g, total
 
 
-KERNELS = {"pr": bench_pr, "tc": bench_tc}
+def bench_cc(scale: int, device="cuda", g=None):
+    """(record, graph, last CCResult) of the CC benchmark (bench.py:
+    236-250); g, when given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.ops import minselect
+    from gardenia_tpu_torch.solvers.cc import cc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = minselect.LAUNCHES
+    res, secs = time_op(lambda: cc_solver(g, variant="sv", device=dev),
+                        warmup=WARMUP, iters=ITERS, device=dev)
+    ms_per_medge = secs * 1e3 / (g.nnz / 1e6)
+    record = {"metric": f"cc_sv_ms_rmat{scale}", "value": secs * 1e3,
+              "unit": "ms",
+              "vs_baseline": BASELINE_CC_MS_PER_MEDGE / ms_per_medge,
+              "detail": {"rounds": res.iterations, "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev),
+                         "k2_launches": minselect.LAUNCHES - before}}
+    return record, g, res
+
+
+KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc}
 
 
 def main(argv=None):

@@ -1,17 +1,19 @@
-"""Benchmark CLI of the port — the `pr` and `tc` kernels, with the
+"""Benchmark CLI of the port — the `pr`, `tc` and `cc` kernels, with the
 positional argv of gardenia_tpu/cli.py:
 
-  python -m gardenia_tpu_torch.cli {pr,tc} <filetype> <graph-prefix|scale>
+  python -m gardenia_tpu_torch.cli {pr,tc,cc} <filetype> <graph-prefix|scale>
                                    [symmetrize] [--device {cuda,cpu}]
 e.g.
   python -m gardenia_tpu_torch.cli pr rmat 20
   python -m gardenia_tpu_torch.cli pr mtx soc-LiveJournal1 0 --device cpu
   python -m gardenia_tpu_torch.cli tc rmat 20
+  python -m gardenia_tpu_torch.cli cc rmat 20
 
 Each prints the reference's contract lines: '|V| <m> |E| <nnz>', the
 kernel's own lines (pr: the error trace, 'runtime [pull] = X ms.',
-'GTEPS = ...'; tc: 'runtime [base] = X sec', 'total_num_triangles = N')
-and the serial oracle's 'Correct'/'Wrong'.
+'GTEPS = ...'; tc: 'runtime [base] = X sec', 'total_num_triangles = N';
+cc: 'runtime [sv] = X ms.', 'num_components = N') and the serial
+oracle's 'Correct'/'Wrong'.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from gardenia_tpu import load_graph
-from gardenia_tpu.verify import check, oracles
+import numpy as np
+
+from gardenia_tpu_torch.core.graph import load_graph
+from gardenia_tpu_torch.verify import check, oracles
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.utils.report import gteps, report_runtime
 from gardenia_tpu_torch.utils.timer import time_op
@@ -34,7 +38,7 @@ def _load(args, symmetrize_default=False, need_reverse=False):
     symmetrize = bool(int(args[2])) if len(args) > 2 else symmetrize_default
     if filetype in ("rmat", "uniform"):
         # GAP-style synthetic graphs: prefix is the scale
-        from gardenia_tpu.core.generate import generate_graph
+        from gardenia_tpu_torch.core.generate import generate_graph
         g = generate_graph(filetype, scale=int(prefix),
                            symmetrize=symmetrize or symmetrize_default,
                            need_reverse=need_reverse)
@@ -72,7 +76,32 @@ def run_tc(args, device) -> bool:
     return check(total == expect, f"(expected {expect})")
 
 
-KERNELS = {"pr": run_pr, "tc": run_tc}
+def same_components(comp, expect) -> bool:
+    """The bijection check of gardenia_tpu/cli.py run_cc: no expected
+    component split across labels, and as many labels as components (a
+    solver that merges components must fail)."""
+    _, inv_a = np.unique(comp, return_inverse=True)
+    _, inv_b = np.unique(expect, return_inverse=True)
+    return (len(np.unique(inv_a * (inv_b.max() + 1) + inv_b)) ==
+            len(np.unique(inv_b))
+            and len(np.unique(inv_a)) == len(np.unique(inv_b)))
+
+
+def run_cc(args, device, variant="sv") -> bool:
+    """cc <filetype> <graph> (src/cc/main.cc): symmetrizes by default;
+    Shiloach-Vishkin, as the reference CLI runs it."""
+    print("Connected Components by gardenia_tpu_torch")
+    g = _load(args, symmetrize_default=True, need_reverse=True)
+    from gardenia_tpu_torch.solvers.cc import cc_solver
+    res, secs = time_op(lambda: cc_solver(g, variant=variant, device=device),
+                        device=device)
+    report_runtime(variant, secs)
+    comp = res.comp.cpu().numpy()
+    print(f"num_components = {len(np.unique(comp))}")
+    return check(same_components(comp, oracles.cc_serial(g)))
+
+
+KERNELS = {"pr": run_pr, "tc": run_tc, "cc": run_cc}
 
 
 def main(argv=None) -> int:

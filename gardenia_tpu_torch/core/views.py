@@ -1,10 +1,10 @@
-"""Torch device views of the shared host Graph.
+"""Torch device views of the host Graph (core/graph.py).
 
-The host Graph (gardenia_tpu.core.graph) is jax-free and shared with the
-reference package; its `ell`, `hybrid` and `device_*` methods import jax
-and are never called here.  These functions build the port's views from
-the Graph's numpy CSR instead and cache them in the same per-graph cache
-(`Graph._dev`), under keys of their own: ("torch", kind, device, ...).
+They take the place of the reference Graph's `device_*`, `ell` and
+`hybrid` methods: built from the Graph's numpy CSR and cached in its
+per-graph cache (`Graph._dev`) under keys ("torch", kind, device, ...).
+A symmetric graph's forward and reverse views are one CSR, so they share
+one cache entry, as the reference's `hybrid` does (graph.py:185-186).
 """
 
 from __future__ import annotations
@@ -12,45 +12,86 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gardenia_tpu.core import types as T
+from gardenia_tpu_torch.core import types as T
 
 
 def _key(kind: str, device, *rest):
     return ("torch", kind, str(torch.device(device)), *rest)
 
 
-def degrees(g, device) -> torch.Tensor:
-    """i32[m] out-degrees."""
-    return g._dev(_key("deg", device), lambda: torch.from_numpy(
-        np.asarray(g.degrees, T.VID_DTYPE)).to(device))
+def _dir(g, reverse: bool) -> str:
+    return "reverse" if reverse or g.symmetric else "forward"
 
 
-def reverse_ell(g, device):
-    """Unweighted ELL slab matrix of g's transpose (in-edges per row)."""
+def _csr_arrays(g, reverse: bool):
+    return (g.in_rowptr, g.in_colidx) if reverse else (g.rowptr, g.colidx)
+
+
+def degrees(g, device, reverse: bool = False) -> torch.Tensor:
+    """i32[m] out-degrees (in-degrees when reverse)."""
+    def mk():
+        deg = g.in_degrees if reverse else g.degrees
+        return torch.from_numpy(np.asarray(deg, T.VID_DTYPE)).to(device)
+    return g._dev(_key("deg", device, _dir(g, reverse)), mk)
+
+
+def csr(g, device, reverse: bool = False):
+    """(rowptr i64[m+1], colidx i32[nnz]) of g (of its transpose when
+    reverse)."""
+    def mk():
+        rp, ci = _csr_arrays(g, reverse)
+        return (torch.from_numpy(np.asarray(rp, np.int64)).to(device),
+                torch.from_numpy(np.asarray(ci, T.VID_DTYPE)).to(device))
+    return g._dev(_key("csr", device, _dir(g, reverse)), mk)
+
+
+def coo(g, device):
+    """(src i32[nnz], dst i32[nnz]) of g's edges, src-sorted."""
+    def mk():
+        from gardenia_tpu_torch.core import build
+        s, d = build.csr_to_coo(g.rowptr, g.colidx)
+        return (torch.from_numpy(np.asarray(s, T.VID_DTYPE)).to(device),
+                torch.from_numpy(np.asarray(d, T.VID_DTYPE)).to(device))
+    return g._dev(_key("coo", device), mk)
+
+
+def ell(g, device, reverse: bool = False):
+    """Unweighted ELL slab matrix of g (of its transpose when reverse)."""
     def mk():
         from gardenia_tpu_torch.ops.ell import build_ell
-        return build_ell(g.in_rowptr, g.in_colidx, None,
-                         num_cols=g.n).to(device)
-    return g._dev(_key("ell", device, "reverse"), mk)
+        rp, ci = _csr_arrays(g, reverse)
+        return build_ell(rp, ci, None, num_cols=g.n).to(device)
+    return g._dev(_key("ell", device, _dir(g, reverse)), mk)
 
 
-def reverse_hybrid(g, device):
-    """Unweighted hybrid block-sparse matrix (threshold 16) of g's
-    transpose.  Build block locality first with gardenia_tpu.core.relabel
-    on scatter-labelled graphs."""
+def hybrid(g, device, reverse: bool = False):
+    """Unweighted hybrid block-sparse matrix (threshold 16) of g (of its
+    transpose when reverse).  Build block locality first with
+    core/relabel.py on scatter-labelled graphs."""
     def mk():
         from gardenia_tpu_torch.ops.bsr import build_hybrid
-        return build_hybrid(g.in_rowptr, g.in_colidx, None,
-                            num_cols=g.n).to(device)
-    return g._dev(_key("hybrid", device, "reverse"), mk)
+        rp, ci = _csr_arrays(g, reverse)
+        return build_hybrid(rp, ci, None, num_cols=g.n).to(device)
+    return g._dev(_key("hybrid", device, _dir(g, reverse)), mk)
+
+
+def relabel_maps(g, device):
+    """(relabelled graph, new_of_old i64[m], old_of_new i64[m]) of the
+    degree relabelling (core/relabel.py), the maps on `device`."""
+    from gardenia_tpu_torch.core.relabel import relabeled
+    rel = relabeled(g)
+
+    def up():
+        return (torch.from_numpy(np.asarray(rel.new_of_old, np.int64))
+                .to(device),
+                torch.from_numpy(np.asarray(rel.old_of_new, np.int64))
+                .to(device))
+    new_of_old, old_of_new = g._dev(_key("relabel_maps", device), up)
+    return rel.graph, new_of_old, old_of_new
 
 
 def relabeled_hybrid(g, device):
     """(relabelled graph, its reverse hybrid matrix, new_of_old tensor) —
     the degree-relabelled layout that pull PageRank runs on."""
-    from gardenia_tpu.core.relabel import relabeled
-    rel = relabeled(g)
-    hyb = reverse_hybrid(rel.graph, device)
-    new_of_old = g._dev(_key("new_of_old", device), lambda: torch.from_numpy(
-        np.asarray(rel.new_of_old, np.int64)).to(device))
-    return rel.graph, hyb, new_of_old
+    g2, new_of_old, _ = relabel_maps(g, device)
+    return g2, hybrid(g2, device, reverse=True), new_of_old

@@ -113,6 +113,10 @@ def lib() -> ctypes.CDLL:
                 vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
             so.gdn_dense_panel_matmul.restype = ci
             ll = ctypes.c_longlong
+            # (panel, dtype, src, x2d, out, R, W, sentinel, stream)
+            so.gdn_dense_panel_minselect.argtypes = [
+                vp, ci, vp, vp, vp, ll, ci, ci, vp]
+            so.gdn_dense_panel_minselect.restype = ci
             # (rows, first index, second index, out, n, [W|wpad,] stream)
             for name, extra in (("gdn_tc_rot_count", [ci]),
                                 ("gdn_tc_merge_count", []),

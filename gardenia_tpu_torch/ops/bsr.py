@@ -18,7 +18,9 @@ bf16 panel is built in f32 and converted through torch.
 `spmv_hybrid` runs each panel array through kernel K1 (ops/panel.py) with
 an f32 operand and f32 accumulation, and the remainder through spmv_ell.
 The reference's hi/lo bf16 operand split and its `_small_dense` precision
-policy were MXU workarounds and are not ported.
+policy were MXU workarounds and are not ported.  `spmv_hybrid_min_select`
+(CC's label sweep) runs each panel array through kernel K2
+(ops/minselect.py) and the remainder through spmv_ell's min-select.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gardenia_tpu_torch.ops import minselect as _minselect
 from gardenia_tpu_torch.ops import panel as _panel
 from gardenia_tpu_torch.ops.ell import EllMatrix, build_ell, from_jax_ell
 
@@ -106,7 +109,7 @@ def build_hybrid(rowptr: np.ndarray,
     options have no caller in the port and are not carried).  Duplicate
     edges accumulate additively in both layouts.
     """
-    from gardenia_tpu.core import build as _build
+    from gardenia_tpu_torch.core import build as _build
 
     num_rows = len(rowptr) - 1
     nnz = len(colidx)
@@ -288,3 +291,35 @@ def spmv_hybrid(hyb: HybridMatrix, x: torch.Tensor, *, num_rows: int,
     if hyb.scale != 1.0:       # constant-value factorization
         y = y * hyb.scale
     return y if init is None else y + init.float()
+
+
+def spmv_hybrid_min_select(hyb: HybridMatrix, x: torch.Tensor, *,
+                           num_rows: int, sentinel: int) -> torch.Tensor:
+    """y[i] = min over A[i,j] != 0 of x[j] (the min-select semiring — CC
+    label propagation) over the hybrid layout; rows with no neighbours
+    get `sentinel`.  Each panel array goes through K2, whose per-slot
+    rows are combined by an amin scatter (split rows repeat in p.rows);
+    the remainder goes through spmv_ell with I32_MIN_SELECT2."""
+    from gardenia_tpu_torch.ops.semiring import I32_MIN_SELECT2
+    from gardenia_tpu_torch.ops.spmv import spmv_ell
+
+    num_cols = int(x.shape[0])
+    qx = (num_cols + LANES - 1) // LANES
+    mb = (num_rows + LANES - 1) // LANES
+    x = x.to(torch.int32)
+    # label pad slots hold the sentinel (absent columns are masked by the
+    # panel anyway)
+    x2d = x.new_full((qx * LANES,), sentinel)
+    x2d[:num_cols] = x
+    x2d = x2d.view(qx, LANES)
+    y2d = x.new_full((mb, LANES), sentinel)
+    for p in hyb.dense:
+        part = _minselect.dense_panel_minselect(p.panel, p.src, x2d,
+                                                sentinel)
+        y2d.scatter_reduce_(0, p.rows.long()[:, None].expand_as(part), part,
+                            "amin")
+    y = y2d.view(-1)[:num_rows]
+    if hyb.rem.buckets:
+        y = spmv_ell(hyb.rem, x, semiring=I32_MIN_SELECT2,
+                     num_rows=num_rows, init=y)
+    return y

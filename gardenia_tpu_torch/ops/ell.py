@@ -1,10 +1,9 @@
 """Degree-bucketed ELL ("slab") layout — torch counterpart of
 gardenia_tpu/ops/ell.py.
 
-`build_ell` is a numpy-only copy of the reference builder: the reference
-module is reached through gardenia_tpu/ops/__init__.py, which imports jax,
-and the machine with the card has no jax.  Same constants
-(gardenia_tpu.core.types), same arrays; tests hold the two equal.
+`build_ell` is a numpy-only copy of the reference builder: the port
+imports nothing of gardenia_tpu.  Same constants (the port's copy
+core/types.py), same arrays; tests hold the two equal.
 
 Layout: each bucket holds
   row_ids i32[R]      destination row of each virtual row (sentinel m = pad)
@@ -20,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gardenia_tpu.core import types as T
+from gardenia_tpu_torch.core import types as T
 
 
 @dataclasses.dataclass

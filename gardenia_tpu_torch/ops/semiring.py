@@ -15,7 +15,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from gardenia_tpu.core import types as T
+from gardenia_tpu_torch.core import types as T
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,15 @@
 """Where a solve's device time goes, by torch.profiler on a CUDA card.
 
-    python -m gardenia_tpu_torch.profile_solve [--kernel {pr,tc}]
-        [--scale 20] [--solves 3] [--trace chiprun_out/trace.json]
+    python -m gardenia_tpu_torch.profile_solve [--kernel {pr,tc,cc}]
+        [--graph {rmat,uniform}] [--scale 20] [--solves 3]
+        [--trace chiprun_out/trace.json]
 
-On the bench's graph (bench.get_graph): one untraced solve that builds
-and uploads (layout or TC prep), then `--solves` untraced solves timed on
-the host clock after cuda.synchronize, then `--solves` solves under
-torch.profiler.  It prints nvidia-smi's name and power limit, the
+On the bench's graph (bench.get_graph; `--graph uniform`: the uniform
+random graph of the same scale and degree, on which cc_sv takes a dense
+round), with the bench's solver (cc: cc_sv): one untraced solve that
+builds and uploads (layout or TC prep), then `--solves` untraced solves
+timed on the host clock after cuda.synchronize, then `--solves` solves
+under torch.profiler.  It prints nvidia-smi's name and power limit, the
 device busy time summed over the traced solves, the span from the first
 device event's start to the last one's end, the idle share of that span
 (1 - busy / span), and busy ms and launch count by kernel name.
@@ -28,6 +31,9 @@ def solver(kernel: str):
     if kernel == "pr":
         from gardenia_tpu_torch.solvers.pr import pr_solver
         return pr_solver
+    if kernel == "cc":
+        from gardenia_tpu_torch.solvers.cc import cc_sv
+        return cc_sv
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
 
@@ -35,7 +41,8 @@ def solver(kernel: str):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m gardenia_tpu_torch."
                                       "profile_solve")
-    ap.add_argument("--kernel", default="tc", choices=["pr", "tc"])
+    ap.add_argument("--kernel", default="tc", choices=["pr", "tc", "cc"])
+    ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)
     ap.add_argument("--trace", default=None)
@@ -45,12 +52,15 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from gardenia_tpu_torch.bench import get_graph
+    from gardenia_tpu_torch.core.generate import generate_graph
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     solve = solver(args.kernel)
-    g = get_graph(args.scale)
+    g = (get_graph(args.scale) if args.graph == "rmat" else
+         generate_graph("uniform", scale=args.scale, degree=16,
+                        symmetrize=True))
     t0 = time.perf_counter()
     solve(g, device=dev)
     torch.cuda.synchronize()
@@ -80,8 +90,8 @@ def main(argv=None):
     busy = sum(ms for _, ms in by_name.values())
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3
-    print(f"{args.kernel} rmat{args.scale}: {len(events)} device events "
-          f"over {args.solves} solves, busy {busy} ms, span {span} ms, "
+    print(f"{args.kernel} {args.graph}{args.scale}: {len(events)} device "
+          f"events over {args.solves} solves, busy {busy} ms, span {span} ms, "
           f"idle share {1 - busy / span}")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {ms:10.3f} ms {n:5d}x {name[:110]}")

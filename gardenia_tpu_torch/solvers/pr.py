@@ -67,7 +67,7 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
               device="cuda") -> PRResult:
     """PageRank scores for all vertices of g on `device`.
 
-    g is the shared host Graph (gardenia_tpu.core.graph); the pull variant
+    g is the host Graph (gardenia_tpu_torch.core.graph); the pull variant
     sweeps its reverse (in-edge) view.
     """
     if variant in ("push", "delta"):
@@ -90,7 +90,7 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
         return PRResult(scores[new_of_old], it, errs)
     if layout == "ell":
         from gardenia_tpu_torch.ops.spmv import spmv_ell
-        spmv_fn = partial(spmv_ell, views.reverse_ell(g, dev),
+        spmv_fn = partial(spmv_ell, views.ell(g, dev, reverse=True),
                           semiring=F32_PLUS_TIMES, num_rows=m)
         scores, it, errs = _pr_loop(spmv_fn, views.degrees(g, dev), m,
                                     epsilon, max_iter)

@@ -216,7 +216,7 @@ def tc_dag(g, *, presorted_dag: bool = False, use_relabel: bool = True):
     if presorted_dag:
         return g
     if use_relabel:
-        from gardenia_tpu.core.relabel import relabeled
+        from gardenia_tpu_torch.core.relabel import relabeled
         g = relabeled(g).graph
     return g._dev(("oriented",), g.oriented)
 

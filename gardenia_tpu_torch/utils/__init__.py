@@ -1,2 +1,2 @@
-"""Reporting and timing helpers (torch counterparts of gardenia_tpu.utils,
-whose package import pulls in jax)."""
+"""Reporting and timing helpers (torch counterparts of
+gardenia_tpu.utils)."""

@@ -1,7 +1,7 @@
 """Benchmark reporting contract — the same print format as
 gardenia_tpu/utils/report.py (the reference's printf lines, e.g.
-'runtime [omp_base] = 1.23 ms').  Copied because importing
-gardenia_tpu.utils imports jax."""
+'runtime [omp_base] = 1.23 ms').  A copy: the port imports nothing of
+gardenia_tpu."""
 
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ from gardenia_tpu.core.generate import generate_graph
 from gardenia_tpu.solvers import pr as jpr
 from gardenia_tpu.verify import oracles
 
+from gardenia_tpu_torch.core.graph import from_csr_of
 from gardenia_tpu_torch.ops import panel as tpanel
 from gardenia_tpu_torch.solvers import pr as tpr
 
@@ -22,7 +23,7 @@ def _rmat(scale):
 @pytest.mark.parametrize("scale", [12, 14])
 def test_pr_hybrid_matches_jax(scale):
     g = _rmat(scale)
-    res_t = tpr.pr_solver(g, layout="hybrid", device="cpu")
+    res_t = tpr.pr_solver(from_csr_of(g), layout="hybrid", device="cpu")
     res_j = jpr.pr_solver(g, layout="hybrid")
     it = int(res_j.iterations)
     assert res_t.iterations == it
@@ -37,7 +38,7 @@ def test_pr_hybrid_matches_jax(scale):
 
 
 def test_pr_ell_layout_matches_hybrid():
-    g = _rmat(12)
+    g = from_csr_of(_rmat(12))
     res_h = tpr.pr_solver(g, layout="hybrid", device="cpu")
     res_e = tpr.pr_solver(g, layout="ell", device="cpu")
     res_a = tpr.pr_solver(g, device="cpu")
@@ -50,7 +51,7 @@ def test_pr_directed_graph_matches_serial_oracle():
     vertices without out-edges contribute nothing."""
     g = generate_graph("rmat", scale=10, degree=8, symmetrize=False,
                        need_reverse=True)
-    res = tpr.pr_solver(g, device="cpu")
+    res = tpr.pr_solver(from_csr_of(g), device="cpu")
     expect, iters, _ = oracles.pagerank_serial(g)
     assert res.iterations == iters
     assert np.abs(res.scores.numpy() - expect).sum() < 1e-4
@@ -69,4 +70,4 @@ def test_pr_print_trace_matches_jax(capsys):
 @pytest.mark.parametrize("variant", ["push", "delta"])
 def test_pr_unported_variants_raise(variant):
     with pytest.raises(NotImplementedError, match="A3"):
-        tpr.pr_solver(_rmat(8), variant=variant, device="cpu")
+        tpr.pr_solver(from_csr_of(_rmat(8)), variant=variant, device="cpu")

@@ -18,9 +18,11 @@ from tests.conftest import random_graph
 
 from gardenia_tpu.core.generate import generate_graph
 from gardenia_tpu.core.graph import Graph
+from gardenia_tpu.core.relabel import relabeled as jrelabeled
 from gardenia_tpu.solvers import tc as jtc
 from gardenia_tpu.verify import oracles
 
+from gardenia_tpu_torch.core.graph import Graph as TGraph, from_csr_of
 from gardenia_tpu_torch.ops import intersect as tint
 from gardenia_tpu_torch.ops import tc_count
 from gardenia_tpu_torch.solvers import tc as ttc
@@ -83,9 +85,14 @@ def test_prep_matches_jax(case, monkeypatch):
     use_bitmap = case != "no_bitmap"
     g = GRAPHS["rand" if case == "rand" else "rmat12"]()
     jcount = jtc.tc_rotate(g, use_bitmap=use_bitmap)
-    dag = ttc.tc_dag(g)           # the DAG object the JAX solve cached on
-    jth, jstreams, jbm, jsent = dag._device_cache[
+    # the DAG object the JAX solve cached its prep on
+    jdag = jrelabeled(g).graph._dev(("oriented",), None)
+    jth, jstreams, jbm, jsent = jdag._device_cache[
         ("tc_rot3_prep", use_bitmap)][0]
+    tg = from_csr_of(g)
+    dag = ttc.tc_dag(tg)
+    np.testing.assert_array_equal(dag.rowptr, jdag.rowptr)
+    np.testing.assert_array_equal(dag.colidx, jdag.colidx)
     th, streams, bm, sent = ttc.tc_prep(dag, use_bitmap)
     assert th.dtype == jth.dtype and sent == jsent == len(th) - 1
     np.testing.assert_array_equal(th, jth)
@@ -100,7 +107,7 @@ def test_prep_matches_jax(case, monkeypatch):
         for a, b in zip(bm, jbm):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
-    assert ttc.tc_rotate(g, use_bitmap=use_bitmap, device="cpu") == jcount
+    assert ttc.tc_rotate(tg, use_bitmap=use_bitmap, device="cpu") == jcount
 
 
 @pytest.mark.parametrize("W", ttc.ROT_WIDTHS)
@@ -218,7 +225,7 @@ def test_tc_solver_matches_jax_and_oracle(name, cond, monkeypatch):
         kw = {"use_relabel": False}
     elif cond == "bsearch":
         kw = {"variant": "bsearch", "chunk": 5000}
-    g = GRAPHS[name]()
+    g = from_csr_of(GRAPHS[name]())
     before = dict(tc_count.LAUNCHES)
     got = ttc.tc_solver(g, device="cpu", **kw)
     jax_count, oracle = _expected(name)
@@ -230,9 +237,10 @@ def test_tc_solver_matches_jax_and_oracle(name, cond, monkeypatch):
 
 
 def test_tc_empty_dag():
-    g = Graph(np.zeros(9, np.int64), np.zeros(0, np.int32), num_cols=8,
+    g = TGraph(np.zeros(9, np.int64), np.zeros(0, np.int32), num_cols=8,
               symmetric=True)
-    assert jtc.tc_solver(g) == 0
+    assert jtc.tc_solver(Graph(g.rowptr, g.colidx, num_cols=8,
+                               symmetric=True)) == 0
     for variant in ("rotate", "bsearch"):
         assert ttc.tc_solver(g, variant=variant, device="cpu") == 0
     with pytest.raises(ValueError):
@@ -245,16 +253,17 @@ def test_tc_pair_count_not_multiple_of_8():
     (tc.py:205-207, 307-309) — shown here on its rotation kernel — and
     the port does not copy that."""
     g = random_graph(m=300, avg_deg=14, seed=8, symmetric=True)
-    dag = ttc.tc_dag(g)
+    tg = from_csr_of(g)
+    dag = ttc.tc_dag(tg)
     data = ttc.tc_data(dag, True, "cpu")
     lens = [len(cu) for cu, _ in data.streams.values()]
     assert any(n % 8 for n in lens) and any(n > 1024 for n in lens)
     expect = oracles.tc_serial(g.oriented())
     assert jtc.tc_solver(g, chunk=1500) == expect
     for chunk in (1500, 3, 1 << 20):
-        assert ttc.tc_rotate(g, chunk=chunk, device="cpu") == expect
+        assert ttc.tc_rotate(tg, chunk=chunk, device="cpu") == expect
     for chunk in (1500, 97, 1 << 20):
-        assert ttc.tc_bsearch(g, chunk=chunk, device="cpu") == expect
+        assert ttc.tc_bsearch(tg, chunk=chunk, device="cpu") == expect
     W = 8 if 8 in data.streams else min(data.streams)
     cu, cv = data.streams[W]
     rows = 1032
