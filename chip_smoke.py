@@ -18,19 +18,28 @@ result:
      build_hybrid, upload, pr_solver on cuda — with K1's launch count read
      around it, the oracle's residual, and one spmv_hybrid apply timed
      with K1 and with the plain version;
-  5. triangle counting's kernels K3 (rot_count), K4 (merge_count) and H1
-     (bitmap_count) against their plain versions on the card, pair by
-     pair with exact integer equality, in every width class of the
-     R-MAT-16 streams, K3 and K4 each on every class (the routes that
-     MERGE_MIN_W = 256 and 8 take); then tc_solver on R-MAT-16 (rotate
-     under the three routings, and bsearch) against the serial oracle;
+  5. triangle counting's kernels K3 (rot_count), K4 (merge_count, with
+     its class width W) and H1 (bitmap_count) against their plain
+     versions on the card, pair by pair with exact integer equality, in
+     every width class of the R-MAT-16 streams as uploaded (ordered by
+     the shared row), K3 and K4 each on every class (the routes that
+     MERGE_MIN_W = 256 and 8 take), K4 and H1 also on a seeded random
+     permutation of every stream and on small edge-case streams (one
+     pair, runs across and longer than a kernel's block of pairs as the
+     library reports it, lengths no multiple of it, all-pad rows and the
+     sentinel row, all-zero hub rows, a bitmap row wider than H1's shared
+     tile); then tc_solver on R-MAT-16 (rotate under the three
+     routings, and bsearch) against the serial oracle;
   6. the TC main path: the port's bench (--kernel tc) on phase 4's
      R-MAT-20 graph — orient, host prep, upload, tc_solver on cuda — with
      the launch counts of K3, K4 and H1 read around it (classes x
      solves), the count held to the JAX package's 424,573,866 and to the
-     plain route's and tc_bsearch's counts, then per class the kernel
-     against its plain version (pairs, ms in turns plain/kernel/kernel/
-     plain, GB/s of rows read, per-pair equality) and peak device memory;
+     plain route's and tc_bsearch's counts; every stream held to the
+     plain versions as in phase 5 (uploaded and shuffled); then per
+     routed class the kernel against its plain version (pairs, ms in
+     turns plain/kernel/kernel/plain, GB/s of the rows its design reads)
+     and peak device memory; K4 timed beside K3 on K3's classes (the
+     crossover, ROADMAP A8);
   7. connected components' kernel K2 (dense_panel_minselect) against its
      plain version on the card, exact, in every panel array of the
      R-MAT-16 layout, of the f32 and bf16 weighted layouts and of the
@@ -58,6 +67,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -219,29 +229,169 @@ def check_k2(hyb, label: str, dev, k2: dict) -> None:
                  f"W={p.width}): {bad} rows")
 
 
-def tc_pairs(data):
-    """(name, kernel fn, plain fn, pairs, bytes of rows read, class label)
-    for every pair stream of a TCData: H1 on the hub pairs, then K3 and
-    K4 each on every width class."""
-    from gardenia_tpu_torch.ops import tc_count as tcc
+def tc_streams(data):
+    """(kernel name, class label, W, rows, first index, second index) for
+    every pair stream of a TCData: H1 on the hub pairs, then K3 and K4
+    each on every width class."""
     out = []
     if data.bitmap is not None:
         bmp, hu, hv = data.bitmap
-        out.append(("bitmap_count", lambda: tcc.bitmap_count(bmp, hu, hv),
-                    lambda: tcc.bitmap_count_plain(bmp, hu, hv), len(hu),
-                    8 * bmp.shape[1] * len(hu), "hub"))
+        out.append(("bitmap_count", "hub", None, bmp, hu, hv))
     for W, (cu, cv) in sorted(data.streams.items()):
-        t = data.table
-        out.append(("rot_count",
-                    lambda t=t, cu=cu, cv=cv, W=W: tcc.rot_count(t, cu, cv, W),
-                    lambda t=t, cu=cu, cv=cv, W=W:
-                    tcc.rot_count_plain(t, cu, cv, W),
-                    len(cu), (512 + 4 * W) * len(cu), f"W{W}"))
-        out.append(("merge_count",
-                    lambda t=t, cu=cu, cv=cv: tcc.merge_count(t, cu, cv),
-                    lambda t=t, cu=cu, cv=cv: tcc.merge_count_plain(t, cu, cv),
-                    len(cu), 1024 * len(cu), f"W{W}"))
+        out += [(name, f"W{W}", W, data.table, cu, cv)
+                for name in ("rot_count", "merge_count")]
     return out
+
+
+def tc_call(name, rows, a, b, W, plain=False):
+    """One TC kernel (or its plain version) on one pair stream."""
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    if name == "bitmap_count":
+        return (tcc.bitmap_count_plain if plain else tcc.bitmap_count)(
+            rows, a, b)
+    if name == "rot_count":
+        return (tcc.rot_count_plain if plain else tcc.rot_count)(
+            rows, a, b, W)
+    return (tcc.merge_count_plain if plain else tcc.merge_count)(
+        rows, a, b, W)
+
+
+def stagings(rows, block: int) -> int:
+    """Stagings of a kernel that stages a shared row once per run of equal
+    `rows` within each block of `block` consecutive pairs."""
+    import torch
+    new = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    new[1:] = rows[1:] != rows[:-1]
+    new[::block] = True
+    return int(new.sum())
+
+
+def tc_read_bytes(name, rows, a, b, W) -> int:
+    """Bytes of rows that a TC kernel reads for one stream, as its design
+    reads them: K3 both rows' needed lanes per pair; K4 cu's W-prefix per
+    pair and row cv per staging; H1 the nonzero quads of bmp[hu] in
+    bmp[hv] per pair and row hu per staging."""
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    n = a.shape[0]
+    if name == "rot_count":
+        return (512 + 4 * W) * n
+    blocks = tcc.kernel_blocks()
+    if name == "merge_count":
+        return 4 * W * n + 512 * stagings(b, blocks["merge_block"])
+    nzq = (rows.view(rows.shape[0], -1, 4) != 0).any(dim=2).sum(dim=1)
+    return (16 * int(nzq[a.long()].sum())
+            + 4 * rows.shape[1] * stagings(a, blocks["bitmap_block"]))
+
+
+def tc_ops(name, rows, a, b, W) -> int:
+    """Operations the inputs need, whatever implements them: K3 W x 128
+    compares a pair; K4 one 7-step search per valid id of cu's W-prefix;
+    H1 an AND and a popcount per nonzero word of the sparser row."""
+    import torch
+    if name == "rot_count":
+        return W * 128 * a.shape[0]
+    if name == "merge_count":
+        fill = (rows >= 0).sum(dim=1).clamp(max=W)
+        return 7 * int(fill[a.long()].sum())
+    nzw = (rows != 0).sum(dim=1)
+    return 2 * int(torch.minimum(nzw[a.long()], nzw[b.long()]).sum())
+
+
+def run_streams(rows: int, block: int, special, rng):
+    """Small edge-case pair streams over `rows` rows, as (label, run side,
+    other side) int32 arrays; the run side is the index whose row a kernel
+    stages once per run of equal values in a block of `block` pairs."""
+    n = 3 * block + 37                  # not a multiple of the block
+
+    def rnd(k):
+        return rng.integers(0, rows, k)
+    across = rnd(n)
+    across[block - 20:block + 20] = across[block - 20]
+    sp = np.asarray(special)
+    cases = [("one pair", rnd(1), rnd(1)),
+             ("sorted runs", np.sort(rng.choice(rnd(7), n)), rnd(n)),
+             ("a run across a block boundary", across, rnd(n)),
+             ("a run longer than a block", np.full(n, rnd(1)[0]), rnd(n)),
+             ("no runs", rnd(n), rnd(n)),
+             ("special rows", np.sort(rng.choice(sp, n)),
+              np.where(rng.random(n) < 0.5, rng.choice(sp, n), rnd(n)))]
+    return [(label, r.astype(np.int32), o.astype(np.int32))
+            for label, r, o in cases]
+
+
+def hold_tc_streams(data, label, dev, stats, seed, phase) -> None:
+    """Every TC kernel against its plain version, pair by pair and exact,
+    on every stream of data as uploaded (K3 and K4 on every class, H1 on
+    the hub pairs); K4 and H1 also on a seeded random permutation of
+    each stream."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    for name, cls, W, rows, a, b in tc_streams(data):
+        y_p = tc_call(name, rows, a, b, W, plain=True)
+        tag = f"{label} {cls}"
+        tc_compare(name, tc_call(name, rows, a, b, W), y_p, tag, stats)
+        if name != "rot_count":
+            perm = torch.randperm(a.shape[0], generator=gen).to(dev)
+            tc_compare(name, tc_call(name, rows, a[perm].contiguous(),
+                                     b[perm].contiguous(), W),
+                       y_p[perm], f"{tag} shuffled", stats)
+        print(f"[{phase}] {TC_KERNELS[name][0]} {label} {cls:>4}: "
+              f"{a.shape[0]:8d} pairs, equal to the plain version"
+              + ("" if name == "rot_count" else " as uploaded and shuffled"))
+
+
+def hold_edge_cases(table, dev, stats) -> None:
+    """K4 (every W) and H1 against their plain versions on
+    small edge-case streams (run_streams): one pair, runs across and
+    longer than a block, n no multiple of the block, no runs; for K4
+    all-pad rows, the sentinel row C and a full row; for H1 all-zero rows
+    (and the zero sentinel), an all-ones row, rows nonzero in one tile
+    only, and wpad of 4 words, 768 and more than one shared tile."""
+    import torch
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    rng = np.random.default_rng(23)
+    blocks = tcc.kernel_blocks()
+    C = table.shape[0] - 1                   # tc_prep's all-pad sentinel
+    extra = torch.full((2, 128), -1, dtype=torch.int32, device=dev)
+    extra[1] = torch.arange(0, 256, 2, dtype=torch.int32, device=dev)
+    t = torch.cat([table, extra])            # + an all-pad and a full row
+    special = [C, C + 1, C + 2]
+    checked = 0
+    for label, run, other in run_streams(t.shape[0], blocks["merge_block"],
+                                         special, rng):
+        cu = torch.from_numpy(other).to(dev)
+        cv = torch.from_numpy(run).to(dev)
+        for W in tcc.ROT_WIDTHS:
+            tc_compare("merge_count", tcc.merge_count(t, cu, cv, W),
+                       tcc.merge_count_plain(t, cu, cv, W),
+                       f"edge case {label} W{W}", stats)
+            checked += 1
+    print(f"[5] K4 edge cases: {checked} streams (6 cases x 5 W) equal to "
+          f"the plain version")
+    tile = blocks["bitmap_tile_words"]
+    for wpad in (4, 768, 2 * tile + 768):
+        H = 40
+        words = rng.integers(0, 2 ** 32, (H, wpad), dtype=np.uint64)
+        keep = rng.random((H, wpad)) < rng.random((H, 1)) * 0.4
+        bmp = np.where(keep, words, 0).astype(np.uint32)
+        bmp[3] = 0xFFFFFFFF                  # every sign bit set
+        bmp[5:8] = 0                         # all-zero hub rows
+        bmp[-1] = 0                          # the zero sentinel row
+        if wpad > tile:                      # nonzero in one tile only
+            bmp[8, :] = 0
+            bmp[8, -5] = 0x80000001
+            bmp[9, :tile] = 0
+            bmp[9, 2 * tile:] = 0
+        bm = torch.from_numpy(bmp.view(np.int32)).to(dev)
+        for label, run, other in run_streams(
+                H, blocks["bitmap_block"], [3, 5, 6, 7, 8, 9, H - 1], rng):
+            hu = torch.from_numpy(run).to(dev)
+            hv = torch.from_numpy(other).to(dev)
+            tc_compare("bitmap_count", tcc.bitmap_count(bm, hu, hv),
+                       tcc.bitmap_count_plain(bm, hu, hv),
+                       f"edge case {label} wpad {wpad}", stats)
+    print(f"[5] H1 edge cases: 6 cases x wpad (4, 768, {2 * tile + 768}) "
+          f"equal to the plain version")
 
 
 def tc_compare(name, y_k, y_p, label, stats) -> None:
@@ -438,10 +588,8 @@ def main() -> None:
     data16 = tc.tc_data(tc.tc_dag(g16), True, dev)
     if data16.bitmap is None or len(data16.streams) != len(tc.ROT_WIDTHS):
         fail(f"rmat{SMOKE_SCALE} must give hub pairs and every width class")
-    for name, k_fn, p_fn, n, _, label in tc_pairs(data16):
-        tc_compare(name, k_fn(), p_fn(), label, stats)
-        print(f"[5] {TC_KERNELS[name][0]} rmat{SMOKE_SCALE} {label:>4}: "
-              f"{n:7d} pairs, equal to the plain version")
+    hold_tc_streams(data16, f"rmat{SMOKE_SCALE}", dev, stats, seed=5, phase=5)
+    hold_edge_cases(data16.table, dev, stats)
     want16 = oracles.tc_serial(g16.oriented())
     keep_mmw = tc.MERGE_MIN_W
     try:
@@ -517,45 +665,52 @@ def main() -> None:
         fail(f"TC routes disagree: kernels {total}, plain {plain_total}, "
              f"bsearch {bs_total}")
 
+    # every stream of the main path, as uploaded and shuffled
+    hold_tc_streams(data, f"rmat{MAIN_SCALE}", dev, stats, seed=6, phase=6)
+
     # per class at the main path's shapes: the routed kernel against its
-    # plain version, in turns (plain, kernel, kernel, plain) on this card
+    # plain version, in turns (plain, kernel, kernel, plain) on this card.
     # bound per routed class: the table (or bitmap) and the pair streams
-    # each moved once; operations as the kernels do them — K3 W*128
-    # compares a pair, K4 128 binary searches of 7 steps, H1 an AND and a
-    # popcount per 32-bit word of a row
+    # each moved once; operations as the inputs need them (tc_ops)
     tc_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
              for name in TC_KERNELS}
     breakdown = []
-    for name, k_fn, p_fn, n, nbytes, label in tc_pairs(data):
-        W = int(label[1:]) if label != "hub" else None
+    for name, cls, W, rows, a, b in tc_streams(data):
         if W is not None and (name == "merge_count") != (
                 W >= tc.MERGE_MIN_W):
             continue                        # not the route the solver takes
-        if W is None:
-            words = data.bitmap[0].shape[1]
-            tc_ms[name]["bytes"] += data.bitmap[0].numel() * 4 + 12 * n
-            tc_ms[name]["ops"] += 2 * words * n
-        else:
-            tc_ms[name]["bytes"] += data.table.numel() * 4 + 12 * n
-            tc_ms[name]["ops"] += (W * 128 if name == "rot_count"
-                                   else 128 * 7) * n
-        tc_compare(name, k_fn(), p_fn(), f"rmat{MAIN_SCALE} {label}", stats)
+        n = a.shape[0]
+        tc_ms[name]["bytes"] += rows.numel() * 4 + 12 * n
+        tc_ms[name]["ops"] += tc_ops(name, rows, a, b, W)
+        nbytes = tc_read_bytes(name, rows, a, b, W)
+        fn = {"kernel": functools.partial(tc_call, name, rows, a, b, W),
+              "plain": functools.partial(tc_call, name, rows, a, b, W,
+                                         plain=True)}
         t = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            t[which].append(cuda_ms(k_fn if which == "kernel" else p_fn,
+            t[which].append(cuda_ms(fn[which],
                                     reps=10 if which == "kernel" else 2,
                                     warmup=1))
         k_ms, p_ms = (sum(t[w]) / 2 for w in ("kernel", "plain"))
         tc_ms[name]["ms"] += k_ms
         tc_ms[name]["plain_ms"] += p_ms
-        breakdown.append({"class": label, "kernel": TC_KERNELS[name][0],
+        breakdown.append({"class": cls, "kernel": TC_KERNELS[name][0],
                           "pairs": n, "ms": k_ms, "plain_ms": p_ms,
+                          "bytes_read": nbytes,
                           "gb_per_s": nbytes / k_ms / 1e6,
                           "runs": {w: [round(v, 4) for v in vs]
                                    for w, vs in t.items()}})
-        print(f"[6] {TC_KERNELS[name][0]} {label:>4}: {n:8d} pairs, kernel "
+        print(f"[6] {TC_KERNELS[name][0]} {cls:>4}: {n:8d} pairs, kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, rows read "
               f"{nbytes / 1e9:.3f} GB -> {nbytes / k_ms / 1e6:.0f} GB/s")
+    # the crossover of ROADMAP A8: K4 on K3's classes, timed as K3 was
+    k3_ms = {e["class"]: e["ms"] for e in breakdown if e["kernel"] == "K3"}
+    k4_ms = {W: cuda_ms(functools.partial(tcc.merge_count, data.table, cu,
+                                          cv, W), warmup=1)
+             for W, (cu, cv) in data.streams.items() if f"W{W}" in k3_ms}
+    print("[6] A8 crossover, " + "; ".join(
+        f"W{W}: K3 {k3_ms[f'W{W}']:.3f} ms, K4 {ms:.3f} ms"
+        for W, ms in sorted(k4_ms.items())))
     print(f"[6] gpu: {gpu}")
     print("[6] tc breakdown " + json.dumps(breakdown))
     print("[6] TC kernels vs plain: " + json.dumps(stats))

@@ -117,12 +117,16 @@ def lib() -> ctypes.CDLL:
             so.gdn_dense_panel_minselect.argtypes = [
                 vp, ci, vp, vp, vp, ll, ci, ci, vp]
             so.gdn_dense_panel_minselect.restype = ci
-            # (rows, first index, second index, out, n, [W|wpad,] stream)
-            for name, extra in (("gdn_tc_rot_count", [ci]),
-                                ("gdn_tc_merge_count", []),
-                                ("gdn_tc_bitmap_count", [ci])):
+            # (rows, first index, second index, out, n, W|wpad, stream)
+            for name in ("gdn_tc_rot_count", "gdn_tc_merge_count",
+                         "gdn_tc_bitmap_count"):
                 fn = getattr(so, name)
-                fn.argtypes = [vp, vp, vp, vp, ll, *extra, vp]
+                fn.argtypes = [vp, vp, vp, vp, ll, ci, vp]
+                fn.restype = ci
+            for name in ("gdn_tc_merge_block", "gdn_tc_bitmap_block",
+                         "gdn_tc_bitmap_tile_words"):
+                fn = getattr(so, name)
+                fn.argtypes = []
                 fn.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p

@@ -7,14 +7,19 @@ row-index pairs, and returns the int32 count of every pair:
 
   rot_count(table, cu, cv, W)  K3, csrc/tc_rot_count.cu
       #{(j, k): j < W, a_j >= 0, a_j == b_k}, a = table[cu], b = table[cv]
-  merge_count(table, cu, cv)   K4, csrc/tc_merge_count.cu
-      |set(a) & set(b)| over the valid (>= 0) lanes
+  merge_count(table, cu, cv, W)   K4, csrc/tc_merge_count.cu
+      |set(a[:W]) & set(b)| over the valid (>= 0) lanes
   bitmap_count(bmp, hu, hv)    H1, csrc/tc_bitmap_count.cu
       popcount(bmp[hu] & bmp[hv]) over the row's words
 
 table is int32 (C, 128) with ascending rows and -1 pads trailing; bmp is
 the hub bitmap's uint32 words viewed as int32.  Indices must lie in
 range: the kernels do not check them (the plain versions raise).
+
+K4 and H1 are fastest on streams in which runs of pairs share a row (K4:
+cv, H1: hu), as solvers/tc.tc_data orders them: each stages that row once
+per run of a block of pairs (kernel_blocks() reads the block sizes from
+the kernels).  Any order counts right.
 
 On CUDA tensors each wrapper launches its kernel, in one launch for the
 whole stream, or raises; on CPU tensors, and only there, it takes its
@@ -39,6 +44,18 @@ LAUNCHES = {"rot_count": 0, "merge_count": 0, "bitmap_count": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kernel_blocks() -> dict:
+    """The kernels' own block sizes, read from the built library (needs
+    nvcc): merge_block, consecutive pairs a K4 warp takes; bitmap_block,
+    consecutive hub pairs an H1 CTA takes; bitmap_tile_words, the words
+    of the hu row H1 holds in shared memory at a time."""
+    from gardenia_tpu_torch.ops import _build
+    so = _build.lib()
+    return {"merge_block": so.gdn_tc_merge_block(),
+            "bitmap_block": so.gdn_tc_bitmap_block(),
+            "bitmap_tile_words": so.gdn_tc_bitmap_tile_words()}
 
 
 def _steps(n: int, chunk: int):
@@ -66,11 +83,11 @@ def rot_count_plain(table: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
 
 
 def merge_count_plain(table: torch.Tensor, cu: torch.Tensor,
-                      cv: torch.Tensor, *,
+                      cv: torch.Tensor, W: int = LANES, *,
                       chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """K4 in torch ops: `_bitonic_intersect` (tc.py:271-300) per pair,
-    with b lane-reversed.  Pads become keys >= 2^28, so ids must stay
-    below it (tc.py:428)."""
+    with b lane-reversed and a's lanes from W on taken as pads.  Pads
+    become keys >= 2^28, so ids must stay below it (tc.py:428)."""
     if table.numel() and int(table.max()) >= PAD_KEY:
         raise ValueError("the bitonic merge's pad keys collide with vertex "
                          f"ids >= 2^28 (table max {int(table.max())})")
@@ -83,7 +100,7 @@ def merge_count_plain(table: torch.Tensor, cu: torch.Tensor,
     for lo, hi in _steps(cu.shape[0], chunk):
         a = table[cu[lo:hi]]
         b_rev = table[cv[lo:hi]].flip(1)
-        a = torch.where(a < 0, PAD_KEY + lane, a)
+        a = torch.where((a < 0) | (lane >= W), PAD_KEY + lane, a)
         b = torch.where(b_rev < 0, PAD_KEY + (1 << 20) - lane, b_rev)
         # cross stage of merging [a, rev(b)]: position i pairs with i+128
         mn, mx = torch.minimum(a, b), torch.maximum(a, b)
@@ -177,14 +194,18 @@ def rot_count(table: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
     return _launch("rot_count", "gdn_tc_rot_count", table, cu, cv, W)
 
 
-def merge_count(table: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor, *,
-                chunk: int = PLAIN_CHUNK) -> torch.Tensor:
-    """i32[n] |set(table[cu]) & set(table[cv])| per pair (kernel K4).
-    Rows ascending, -1 pads trailing; the kernel has no id ceiling."""
+def merge_count(table: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
+                W: int = LANES, *, chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """i32[n] |set(table[cu][:W]) & set(table[cv])| per pair (kernel K4):
+    the full intersection when cu's ids lie in its first W lanes, as the
+    width classes put them.  Rows ascending, -1 pads trailing; the kernel
+    has no id ceiling."""
     _check("merge_count", table, cu, cv, lambda w: w == LANES)
+    if W not in ROT_WIDTHS:
+        raise ValueError(f"merge_count: W={W} not in {ROT_WIDTHS}")
     if table.device.type == "cpu":
-        return merge_count_plain(table, cu, cv, chunk=chunk)
-    return _launch("merge_count", "gdn_tc_merge_count", table, cu, cv)
+        return merge_count_plain(table, cu, cv, W, chunk=chunk)
+    return _launch("merge_count", "gdn_tc_merge_count", table, cu, cv, W)
 
 
 def bitmap_count(bmp: torch.Tensor, hu: torch.Tensor, hv: torch.Tensor, *,

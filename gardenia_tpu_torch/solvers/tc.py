@@ -10,8 +10,9 @@ Variants:
       chunk pairs into width classes W = 8..128.  On the device: kernel
       H1 counts the hub pairs, K3 (rotation count) the classes
       W < MERGE_MIN_W, K4 (merge count) the rest — one launch per class
-      over the whole class stream (ops/tc_count.py) — and the per-pair
-      counts are summed in int64.
+      over the whole class stream (ops/tc_count.py), each class ordered
+      by its shared row at upload — and the per-pair counts are summed
+      in int64.
   'bsearch' — chunked wedge enumeration with vectorised binary-search
       membership (ops/intersect.py), plain torch.
 
@@ -189,20 +190,33 @@ def tc_prep(dag, use_bitmap: bool = True):
 class TCData:
     """The rotate path's prep on one device."""
     table: torch.Tensor                      # i32[C+1, 128]
-    streams: Dict[int, Tuple[torch.Tensor, torch.Tensor]]   # W -> (cu, cv)
-    # (bmp as i32[H+1, wpad], hu, hv) when the hub bitmap is built
+    # W -> (cu, cv), ordered by (cv, cu)
+    streams: Dict[int, Tuple[torch.Tensor, torch.Tensor]]
+    # (bmp as i32[H+1, wpad], hu, hv) when the hub bitmap is built; the
+    # hub stream keeps tc_prep's order, which is hu's (DAG-edge order)
     bitmap: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
+def by_second_row(cu: torch.Tensor, cv: torch.Tensor):
+    """(cu, cv) permuted into (cv, cu) order, on their device, so that the
+    pairs sharing a row cv are consecutive and K4 stages it once per run.
+    The per-pair counts are summed, so no result depends on the order."""
+    key = (cv.to(torch.int64) << 32) | cu.to(torch.int64)
+    perm = torch.sort(key).indices
+    return cu[perm].contiguous(), cv[perm].contiguous()
+
+
 def tc_data(dag, use_bitmap: bool, device) -> TCData:
-    """tc_prep of dag uploaded to `device`, cached on dag."""
+    """tc_prep of dag uploaded to `device` (each width class ordered by
+    by_second_row there), cached on dag."""
     def mk():
         th, streams, bm, _ = tc_prep(dag, use_bitmap)
 
         def up(a):
             return torch.from_numpy(a).to(device)
         return TCData(
-            up(th), {W: (up(cu), up(cv)) for W, (cu, cv) in streams.items()},
+            up(th), {W: by_second_row(up(cu), up(cv))
+                     for W, (cu, cv) in streams.items()},
             None if bm is None or not len(bm[1])
             else (up(bm[0].view(np.int32)), up(bm[1]), up(bm[2])))
     return dag._dev(_key("tc_data", device, use_bitmap, HUB_THRESHOLD,
@@ -240,7 +254,8 @@ def tc_rotate(g, *, chunk: int = 1 << 13, presorted_dag: bool = False,
     for W in sorted(data.streams):
         cu, cv = data.streams[W]
         if W >= MERGE_MIN_W:
-            counts = tc_count.merge_count(data.table, cu, cv, chunk=chunk)
+            counts = tc_count.merge_count(data.table, cu, cv, W,
+                                          chunk=chunk)
         else:
             counts = tc_count.rot_count(data.table, cu, cv, W, chunk=chunk)
         total += torch.sum(counts, dtype=torch.int64)

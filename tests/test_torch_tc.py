@@ -171,6 +171,82 @@ def test_merge_count_plain_matches_pallas():
                                           got[lo:lo + 8])
 
 
+@pytest.mark.parametrize("W", ttc.ROT_WIDTHS)
+def test_merge_count_width_prefix(W):
+    """merge_count(..., W) counts |set(a[:W]) & set(b)| pair by pair, and
+    equals W = 128 wherever cu's fill is at most W."""
+    rng = np.random.default_rng(100 + W)
+    P = 96
+    ra, rb = _overlapping_rows(rng, rng.integers(0, 129, P),
+                               rng.integers(0, 129, P))
+    table = torch.from_numpy(np.concatenate([ra, rb]))
+    cu = torch.arange(P, dtype=torch.int32)
+    cv = cu + P
+    got = tc_count.merge_count(table, cu, cv, W, chunk=17).numpy()
+    assert got.dtype == np.int32
+    want = [len(np.intersect1d(a[:W][a[:W] >= 0], b[b >= 0]))
+            for a, b in zip(ra, rb)]
+    np.testing.assert_array_equal(got, want)
+    full = tc_count.merge_count(table, cu, cv).numpy()
+    fits = (ra >= 0).sum(axis=1) <= W
+    assert fits.any() and (W == 128 or not fits.all())
+    np.testing.assert_array_equal(got[fits], full[fits])
+
+
+def test_merge_count_rejects_width():
+    table = torch.full((2, 128), -1, dtype=torch.int32)
+    idx = torch.zeros(1, dtype=torch.int32)
+    for W in (0, 4, 12, 100, 256):
+        with pytest.raises(ValueError, match="W="):
+            tc_count.merge_count(table, idx, idx, W)
+    for W in ttc.ROT_WIDTHS:
+        assert tc_count.merge_count(table, idx, idx, W).tolist() == [0]
+
+
+@pytest.mark.parametrize("case", ["rmat12", "rand"])
+def test_tc_data_orders_classes_by_shared_row(case, monkeypatch):
+    """tc_data's class streams are tc_prep's, permuted into (cv, cu)
+    order; the hub stream is tc_prep's as it stands."""
+    monkeypatch.setattr(ttc, "HUB_THRESHOLD", 32)
+    dag = ttc.tc_dag(from_csr_of(GRAPHS[case]()))
+    _, streams, bm, _ = ttc.tc_prep(dag, True)
+    data = ttc.tc_data(dag, True, "cpu")
+    assert sorted(data.streams) == sorted(streams) and len(streams) >= 3
+    for W, (cu, cv) in streams.items():
+        tcu, tcv = (t.numpy() for t in data.streams[W])
+        assert tcu.dtype == tcv.dtype == np.int32
+        key = tcv.astype(np.int64) << 32 | tcu
+        assert (np.diff(key) > 0).all()          # sorted by (cv, cu)
+        want = np.sort(cv.astype(np.int64) << 32 | cu)
+        np.testing.assert_array_equal(key, want)  # the same multiset
+    assert bm is not None and data.bitmap is not None
+    np.testing.assert_array_equal(data.bitmap[1].numpy(), bm[1])
+    np.testing.assert_array_equal(data.bitmap[2].numpy(), bm[2])
+    np.testing.assert_array_equal(data.bitmap[0].numpy(),
+                                  bm[0].view(np.int32))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_tc_rotate_any_stream_order(name):
+    """The rotate path counts what the JAX package's tc_rotate counts on
+    a seeded shuffle of every uploaded stream, hub pairs included."""
+    g = from_csr_of(GRAPHS[name]())
+    dag = ttc.tc_dag(g)
+    data = ttc.tc_data(dag, True, "cpu")
+    gen = torch.Generator().manual_seed(11)
+    for W, (cu, cv) in list(data.streams.items()):
+        perm = torch.randperm(len(cu), generator=gen)
+        assert len(cu) < 3 or not torch.equal(perm, torch.arange(len(cu)))
+        data.streams[W] = (cu[perm].contiguous(), cv[perm].contiguous())
+    if data.bitmap is not None:
+        bmp, hu, hv = data.bitmap
+        perm = torch.randperm(len(hu), generator=gen)
+        data.bitmap = (bmp, hu[perm].contiguous(), hv[perm].contiguous())
+    assert ttc.tc_data(dag, True, "cpu") is data    # the solve reads these
+    got = ttc.tc_rotate(g, device="cpu")
+    assert got == jtc.tc_rotate(GRAPHS[name]()) == _expected(name)[1]
+
+
 def test_merge_count_plain_keeps_pad_key_limit():
     table = torch.full((2, 128), -1, dtype=torch.int32)
     table[0, 0] = 1 << 28
