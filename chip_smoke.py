@@ -22,14 +22,15 @@ result:
      its class width W) and H1 (bitmap_count) against their plain
      versions on the card, pair by pair with exact integer equality, in
      every width class of the R-MAT-16 streams as uploaded (ordered by
-     the shared row), K3 and K4 each on every class (the routes that
-     MERGE_MIN_W = 256 and 8 take), K4 and H1 also on a seeded random
-     permutation of every stream and on small edge-case streams (one
-     pair, runs across and longer than a kernel's block of pairs as the
-     library reports it, lengths no multiple of it, all-pad rows and the
-     sentinel row, all-zero hub rows, a bitmap row wider than H1's shared
-     tile); then tc_solver on R-MAT-16 (rotate under the three
-     routings, and bsearch) against the serial oracle;
+     the shared row) and on a seeded random permutation of each, K3 and
+     K4 each on every class (the routes that MERGE_MIN_W = 256 and 8
+     take), and on small edge-case streams (one pair, runs across and
+     longer than a kernel's block of pairs as the library reports it,
+     lengths no multiple of it or of the pairs a K3 warp or CTA takes at
+     once, all-pad rows and the sentinel row on either side, all-zero hub
+     rows, a bitmap row wider than H1's shared tile); then tc_solver on
+     R-MAT-16 (rotate under the three routings, and bsearch) against the
+     serial oracle;
   6. the TC main path: the port's bench (--kernel tc) on phase 4's
      R-MAT-20 graph — orient, host prep, upload, tc_solver on cuda — with
      the launch counts of K3, K4 and H1 read around it (classes x
@@ -38,8 +39,8 @@ result:
      plain versions as in phase 5 (uploaded and shuffled); then per
      routed class the kernel against its plain version (pairs, ms in
      turns plain/kernel/kernel/plain, GB/s of the rows its design reads)
-     and peak device memory; K4 timed beside K3 on K3's classes (the
-     crossover, ROADMAP A8);
+     and peak device memory; K3 and K4 timed beside each other on every
+     class (the crossover that solvers/tc.MERGE_MIN_W is set by);
   7. connected components' kernel K2 (dense_panel_minselect) against its
      plain version on the card, exact, in every panel array of the
      R-MAT-16 layout, of the f32 and bf16 weighted layouts and of the
@@ -58,7 +59,8 @@ result:
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's
-non-tensor peak, from this run's inputs); the last line is
+non-tensor peak, from this run's inputs; a TC stream's inputs are its
+index pairs and the distinct rows it refers to); the last line is
 {"ok": true, "device": {...}}.
 
 Needs CUDA: without a card, or without the repository around it, it
@@ -268,29 +270,44 @@ def stagings(rows, block: int) -> int:
 
 def tc_read_bytes(name, rows, a, b, W) -> int:
     """Bytes of rows that a TC kernel reads for one stream, as its design
-    reads them: K3 both rows' needed lanes per pair; K4 cu's W-prefix per
-    pair and row cv per staging; H1 the nonzero quads of bmp[hu] in
-    bmp[hv] per pair and row hu per staging."""
+    reads them: K3 and K4 cu's W-prefix per pair and row cv per staging
+    (K3 restages per lane group's part, K4 per warp's block); H1 the
+    nonzero quads of bmp[hu] in bmp[hv] per pair and row hu per
+    staging."""
     from gardenia_tpu_torch.ops import tc_count as tcc
     n = a.shape[0]
-    if name == "rot_count":
-        return (512 + 4 * W) * n
     blocks = tcc.kernel_blocks()
-    if name == "merge_count":
-        return 4 * W * n + 512 * stagings(b, blocks["merge_block"])
+    if name in ("rot_count", "merge_count"):
+        block = blocks[name.replace("count", "block")]
+        return 4 * W * n + 512 * stagings(b, block)
     nzq = (rows.view(rows.shape[0], -1, 4) != 0).any(dim=2).sum(dim=1)
     return (16 * int(nzq[a.long()].sum())
             + 4 * rows.shape[1] * stagings(a, blocks["bitmap_block"]))
 
 
-def tc_ops(name, rows, a, b, W) -> int:
-    """Operations the inputs need, whatever implements them: K3 W x 128
-    compares a pair; K4 one 7-step search per valid id of cu's W-prefix;
-    H1 an AND and a popcount per nonzero word of the sparser row."""
+def tc_need_bytes(name, rows, a, b, W) -> int:
+    """Bytes the inputs of one stream need, each moved once, whatever
+    design reads them: the index pair and the count of every pair (12
+    bytes), and the rows the stream refers to, each distinct one once: K3
+    and K4 the 512-byte row of every distinct cv and the W-prefix of
+    every distinct cu, at most the whole table; H1 the bitmap row of
+    every distinct hub."""
     import torch
-    if name == "rot_count":
-        return W * 128 * a.shape[0]
-    if name == "merge_count":
+    n = a.shape[0]
+    if name in ("rot_count", "merge_count"):
+        need = (512 * int(torch.unique(b).numel())
+                + 4 * W * int(torch.unique(a).numel()))
+        return min(need, rows.numel() * 4) + 12 * n
+    hubs = int(torch.unique(torch.cat([a, b])).numel())
+    return 4 * rows.shape[1] * hubs + 12 * n
+
+
+def tc_ops(name, rows, a, b, W) -> int:
+    """Operations the inputs need, whatever implements them: K3 and K4
+    one 7-step search per valid id of cu's W-prefix; H1 an AND and a
+    popcount per nonzero word of the sparser row."""
+    import torch
+    if name in ("rot_count", "merge_count"):
         fill = (rows >= 0).sum(dim=1).clamp(max=W)
         return 7 * int(fill[a.long()].sum())
     nzw = (rows != 0).sum(dim=1)
@@ -306,7 +323,8 @@ def run_streams(rows: int, block: int, special, rng):
     def rnd(k):
         return rng.integers(0, rows, k)
     across = rnd(n)
-    across[block - 20:block + 20] = across[block - 20]
+    lo = max(0, block - 20)
+    across[lo:block + 20] = across[lo]
     sp = np.asarray(special)
     cases = [("one pair", rnd(1), rnd(1)),
              ("sorted runs", np.sort(rng.choice(rnd(7), n)), rnd(n)),
@@ -321,30 +339,30 @@ def run_streams(rows: int, block: int, special, rng):
 
 def hold_tc_streams(data, label, dev, stats, seed, phase) -> None:
     """Every TC kernel against its plain version, pair by pair and exact,
-    on every stream of data as uploaded (K3 and K4 on every class, H1 on
-    the hub pairs); K4 and H1 also on a seeded random permutation of
-    each stream."""
+    on every stream of data (K3 and K4 on every class, H1 on the hub
+    pairs), as uploaded and on a seeded random permutation of it."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     for name, cls, W, rows, a, b in tc_streams(data):
         y_p = tc_call(name, rows, a, b, W, plain=True)
         tag = f"{label} {cls}"
         tc_compare(name, tc_call(name, rows, a, b, W), y_p, tag, stats)
-        if name != "rot_count":
-            perm = torch.randperm(a.shape[0], generator=gen).to(dev)
-            tc_compare(name, tc_call(name, rows, a[perm].contiguous(),
-                                     b[perm].contiguous(), W),
-                       y_p[perm], f"{tag} shuffled", stats)
+        perm = torch.randperm(a.shape[0], generator=gen).to(dev)
+        tc_compare(name, tc_call(name, rows, a[perm].contiguous(),
+                                 b[perm].contiguous(), W),
+                   y_p[perm], f"{tag} shuffled", stats)
         print(f"[{phase}] {TC_KERNELS[name][0]} {label} {cls:>4}: "
-              f"{a.shape[0]:8d} pairs, equal to the plain version"
-              + ("" if name == "rot_count" else " as uploaded and shuffled"))
+              f"{a.shape[0]:8d} pairs, equal to the plain version as "
+              f"uploaded and shuffled")
 
 
 def hold_edge_cases(table, dev, stats) -> None:
-    """K4 (every W) and H1 against their plain versions on
+    """K3 and K4 (every W) and H1 against their plain versions on
     small edge-case streams (run_streams): one pair, runs across and
-    longer than a block, n no multiple of the block, no runs; for K4
-    all-pad rows, the sentinel row C and a full row; for H1 all-zero rows
+    longer than a block, n no multiple of the block, no runs; for K3 and
+    K4 all-pad rows, the sentinel row C and a full row on either side,
+    and for K3 the block taken as a lane group's part, as the four parts
+    a warp takes at W8, and as the 32 a CTA takes; for H1 all-zero rows
     (and the zero sentinel), an all-ones row, rows nonzero in one tile
     only, and wpad of 4 words, 768 and more than one shared tile."""
     import torch
@@ -356,18 +374,23 @@ def hold_edge_cases(table, dev, stats) -> None:
     extra[1] = torch.arange(0, 256, 2, dtype=torch.int32, device=dev)
     t = torch.cat([table, extra])            # + an all-pad and a full row
     special = [C, C + 1, C + 2]
-    checked = 0
-    for label, run, other in run_streams(t.shape[0], blocks["merge_block"],
-                                         special, rng):
-        cu = torch.from_numpy(other).to(dev)
-        cv = torch.from_numpy(run).to(dev)
-        for W in tcc.ROT_WIDTHS:
-            tc_compare("merge_count", tcc.merge_count(t, cu, cv, W),
-                       tcc.merge_count_plain(t, cu, cv, W),
-                       f"edge case {label} W{W}", stats)
-            checked += 1
-    print(f"[5] K4 edge cases: {checked} streams (6 cases x 5 W) equal to "
-          f"the plain version")
+    rot = blocks["rot_block"]
+    for name, sizes in (("rot_count", (rot, 4 * rot, 32 * rot)),
+                        ("merge_count", (blocks["merge_block"],))):
+        checked = 0
+        for block in sizes:
+            for label, run, other in run_streams(t.shape[0], block, special,
+                                                 rng):
+                cu = torch.from_numpy(other).to(dev)
+                cv = torch.from_numpy(run).to(dev)
+                for W in tcc.ROT_WIDTHS:
+                    tc_compare(name, tc_call(name, t, cu, cv, W),
+                               tc_call(name, t, cu, cv, W, plain=True),
+                               f"edge case {label} block {block} W{W}",
+                               stats)
+                    checked += 1
+        print(f"[5] {TC_KERNELS[name][0]} edge cases: {checked} streams (6 "
+              f"cases x 5 W x blocks {sizes}) equal to the plain version")
     tile = blocks["bitmap_tile_words"]
     for wpad in (4, 768, 2 * tile + 768):
         H = 40
@@ -670,8 +693,9 @@ def main() -> None:
 
     # per class at the main path's shapes: the routed kernel against its
     # plain version, in turns (plain, kernel, kernel, plain) on this card.
-    # bound per routed class: the table (or bitmap) and the pair streams
-    # each moved once; operations as the inputs need them (tc_ops)
+    # bound per routed class: the distinct rows the stream refers to and
+    # the pair streams, each moved once (tc_need_bytes); operations as the
+    # inputs need them (tc_ops)
     tc_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
              for name in TC_KERNELS}
     breakdown = []
@@ -680,7 +704,8 @@ def main() -> None:
                 W >= tc.MERGE_MIN_W):
             continue                        # not the route the solver takes
         n = a.shape[0]
-        tc_ms[name]["bytes"] += rows.numel() * 4 + 12 * n
+        need = tc_need_bytes(name, rows, a, b, W)
+        tc_ms[name]["bytes"] += need
         tc_ms[name]["ops"] += tc_ops(name, rows, a, b, W)
         nbytes = tc_read_bytes(name, rows, a, b, W)
         fn = {"kernel": functools.partial(tc_call, name, rows, a, b, W),
@@ -696,21 +721,32 @@ def main() -> None:
         tc_ms[name]["plain_ms"] += p_ms
         breakdown.append({"class": cls, "kernel": TC_KERNELS[name][0],
                           "pairs": n, "ms": k_ms, "plain_ms": p_ms,
-                          "bytes_read": nbytes,
+                          "bytes_read": nbytes, "bytes_needed": need,
                           "gb_per_s": nbytes / k_ms / 1e6,
                           "runs": {w: [round(v, 4) for v in vs]
                                    for w, vs in t.items()}})
         print(f"[6] {TC_KERNELS[name][0]} {cls:>4}: {n:8d} pairs, kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, rows read "
-              f"{nbytes / 1e9:.3f} GB -> {nbytes / k_ms / 1e6:.0f} GB/s")
-    # the crossover of ROADMAP A8: K4 on K3's classes, timed as K3 was
-    k3_ms = {e["class"]: e["ms"] for e in breakdown if e["kernel"] == "K3"}
-    k4_ms = {W: cuda_ms(functools.partial(tcc.merge_count, data.table, cu,
-                                          cv, W), warmup=1)
-             for W, (cu, cv) in data.streams.items() if f"W{W}" in k3_ms}
-    print("[6] A8 crossover, " + "; ".join(
-        f"W{W}: K3 {k3_ms[f'W{W}']:.3f} ms, K4 {ms:.3f} ms"
-        for W, ms in sorted(k4_ms.items())))
+              f"{nbytes / 1e9:.3f} GB -> {nbytes / k_ms / 1e6:.0f} GB/s; "
+              f"the inputs need {need / 1e9:.3f} GB, "
+              f"{need / HBM_BYTES_PER_S * 1e3:.3f} ms at the memory rate")
+    # the crossover that MERGE_MIN_W is set by: on every class the kernel
+    # the solver does not route there, timed as the routed one was
+    routed = {e["class"]: e for e in breakdown if e["class"] != "hub"}
+    cross = []
+    for W, (cu, cv) in sorted(data.streams.items()):
+        here = routed[f"W{W}"]
+        took = {here["kernel"]: here["ms"]}
+        for kernel, fn in (("K3", tcc.rot_count), ("K4", tcc.merge_count)):
+            if kernel not in took:
+                took[kernel] = cuda_ms(functools.partial(fn, data.table, cu,
+                                                         cv, W), warmup=1)
+        cross.append({"class": f"W{W}", "K3_ms": took["K3"],
+                      "K4_ms": took["K4"], "routed": here["kernel"]})
+    print(f"[6] K3/K4 crossover (MERGE_MIN_W = {tc.MERGE_MIN_W}), "
+          + "; ".join(f"{c['class']}: K3 {c['K3_ms']:.3f} ms, K4 "
+                      f"{c['K4_ms']:.3f} ms -> {c['routed']}"
+                      for c in cross))
     print(f"[6] gpu: {gpu}")
     print("[6] tc breakdown " + json.dumps(breakdown))
     print("[6] TC kernels vs plain: " + json.dumps(stats))

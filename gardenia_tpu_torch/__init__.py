@@ -11,8 +11,8 @@ Slice 1 is pull PageRank on the degree-relabelled hybrid layout:
   core/views -> ops/bsr.spmv_hybrid (ops/panel K1 + ops/spmv.spmv_ell)
   -> solvers/pr.pr_solver -> cli / bench.
 Slice 2 is triangle counting:
-  solvers/tc host prep (numpy) -> ops/tc_count (H1 bitmap, K3 rotation
-  count, K4 merge count) -> solvers/tc.tc_solver -> cli / bench; the
+  solvers/tc host prep (numpy) -> ops/tc_count (H1 bitmap, K3 search
+  count, K4 hash count) -> solvers/tc.tc_solver -> cli / bench; the
   bsearch variant runs ops/intersect in plain torch.
 Slice 3 is connected components:
   core/views (relabel maps, hybrid/ELL, CSR) -> solvers/cc.cc_sv (ops/

@@ -123,8 +123,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = [vp, vp, vp, vp, ll, ci, vp]
                 fn.restype = ci
-            for name in ("gdn_tc_merge_block", "gdn_tc_bitmap_block",
-                         "gdn_tc_bitmap_tile_words"):
+            for name in ("gdn_tc_rot_block", "gdn_tc_merge_block",
+                         "gdn_tc_bitmap_block", "gdn_tc_bitmap_tile_words"):
                 fn = getattr(so, name)
                 fn.argtypes = []
                 fn.restype = ci

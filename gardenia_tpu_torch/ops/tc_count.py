@@ -12,14 +12,27 @@ row-index pairs, and returns the int32 count of every pair:
   bitmap_count(bmp, hu, hv)    H1, csrc/tc_bitmap_count.cu
       popcount(bmp[hu] & bmp[hv]) over the row's words
 
-table is int32 (C, 128) with ascending rows and -1 pads trailing; bmp is
-the hub bitmap's uint32 words viewed as int32.  Indices must lie in
-range: the kernels do not check them (the plain versions raise).
+table is int32 (C, 128) whose rows hold distinct ascending ids with -1
+pads trailing; bmp is the hub bitmap's uint32 words viewed as int32.
+Indices must lie in range: the kernels do not check them (the plain
+versions raise).
 
-K4 and H1 are fastest on streams in which runs of pairs share a row (K4:
-cv, H1: hu), as solvers/tc.tc_data orders them: each stages that row once
-per run of a block of pairs (kernel_blocks() reads the block sizes from
-the kernels).  Any order counts right.
+K3 and K4 compute the same count two ways.  K3 gives min(W, 32) lanes to
+a pair (four pairs a warp at W8, two at W16), stages row cv as it is,
+sorted, and finds each id of a's W-prefix by a 7-step search: no table
+to build, so it leads on the narrow classes; whether its row gathers or
+its searches' dependent shared-memory loads bound it there is not shown.
+K4 gives a warp to a pair and builds a hash table of row cv per staging,
+one or two loads a lookup: it leads where a lane holds several ids and a
+row serves many pairs.  On an NVIDIA H100 80GB HBM3 at 700.00 W, on the
+R-MAT-20 classes (one run of chip_smoke.py [6]): K3 W8 0.117 ms, W16
+0.175, W32 0.200, W64 0.931, W128 2.048; K4 0.260, 0.343, 0.274, 0.903,
+1.798.  solvers/tc.MERGE_MIN_W routes by that.
+
+All three are fastest on streams in which runs of pairs share a row (K3
+and K4: cv, H1: hu), as solvers/tc.tc_data orders them: each stages that
+row once per run of a block of pairs (kernel_blocks() reads the block
+sizes from the kernels).  Any order counts right.
 
 On CUDA tensors each wrapper launches its kernel, in one launch for the
 whole stream, or raises; on CPU tensors, and only there, it takes its
@@ -48,12 +61,14 @@ def reset_launches() -> None:
 
 def kernel_blocks() -> dict:
     """The kernels' own block sizes, read from the built library (needs
-    nvcc): merge_block, consecutive pairs a K4 warp takes; bitmap_block,
+    nvcc): rot_block, consecutive pairs a K3 lane group takes;
+    merge_block, consecutive pairs a K4 warp takes; bitmap_block,
     consecutive hub pairs an H1 CTA takes; bitmap_tile_words, the words
     of the hu row H1 holds in shared memory at a time."""
     from gardenia_tpu_torch.ops import _build
     so = _build.lib()
-    return {"merge_block": so.gdn_tc_merge_block(),
+    return {"rot_block": so.gdn_tc_rot_block(),
+            "merge_block": so.gdn_tc_merge_block(),
             "bitmap_block": so.gdn_tc_bitmap_block(),
             "bitmap_tile_words": so.gdn_tc_bitmap_tile_words()}
 
@@ -184,8 +199,11 @@ def _launch(name: str, entry: str, rows: torch.Tensor, a: torch.Tensor,
 
 def rot_count(table: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
               W: int, *, chunk: int = PLAIN_CHUNK) -> torch.Tensor:
-    """i32[n] equal (a_j, b_k) pairs, j < W, per pair (kernel K3).
-    cu's row must have its valid ids in its first W lanes."""
+    """i32[n] equal (a_j, b_k) pairs, j < W, per pair (kernel K3): the
+    valid ids among table[cu]'s first W lanes that occur in table[cv].
+    Rows hold distinct ascending ids with -1 pads trailing; the kernel
+    searches where the plain version counts (j, k) pairs, and a repeated
+    id would make the two differ."""
     _check("rot_count", table, cu, cv, lambda w: w == LANES)
     if W not in ROT_WIDTHS:
         raise ValueError(f"rot_count: W={W} not in {ROT_WIDTHS}")

@@ -8,8 +8,8 @@ Variants:
       The host prep (numpy) packs the DAG's adjacency into 128-lane chunk
       rows, sends hub-hub edges to a bitmap and prunes the other edges'
       chunk pairs into width classes W = 8..128.  On the device: kernel
-      H1 counts the hub pairs, K3 (rotation count) the classes
-      W < MERGE_MIN_W, K4 (merge count) the rest — one launch per class
+      H1 counts the hub pairs, K3 (search count) the classes
+      W < MERGE_MIN_W, K4 (hash count) the rest — one launch per class
       over the whole class stream (ops/tc_count.py), each class ordered
       by its shared row at upload — and the per-pair counts are summed
       in int64.
@@ -41,10 +41,13 @@ from gardenia_tpu_torch.ops.tc_count import LANES, ROT_WIDTHS
 
 HUB_THRESHOLD = 128        # deg+ >= this -> bitmap intersection path
 BITMAP_BUDGET_WORDS = 1 << 27   # <= 512 MB of uint32 bitmap rows
-# width classes at or above this go through K4, the others through K3
-# (the reference's crossover, measured on its TPU; ROADMAP A8 measures
-# the card's)
-MERGE_MIN_W = 32
+# width classes at or above this go through K4, the others through K3.
+# The card's crossover (the reference's constant is 32): chip_smoke.py
+# [6] times both kernels on every class of R-MAT-20, and in one run on an
+# NVIDIA H100 80GB HBM3 at 700.00 W K3 led at W8, W16 and W32 (0.117,
+# 0.175, 0.200 ms against K4's 0.260, 0.343, 0.274) and K4 at W64 and
+# W128 (0.903, 1.798 against 0.931, 2.048)
+MERGE_MIN_W = 64
 
 
 def _chunk_table(dag):
@@ -199,8 +202,9 @@ class TCData:
 
 def by_second_row(cu: torch.Tensor, cv: torch.Tensor):
     """(cu, cv) permuted into (cv, cu) order, on their device, so that the
-    pairs sharing a row cv are consecutive and K4 stages it once per run.
-    The per-pair counts are summed, so no result depends on the order."""
+    pairs sharing a row cv are consecutive and K3 and K4 stage it once
+    per run.  The per-pair counts are summed, so no result depends on
+    the order."""
     key = (cv.to(torch.int64) << 32) | cu.to(torch.int64)
     perm = torch.sort(key).indices
     return cu[perm].contiguous(), cv[perm].contiguous()

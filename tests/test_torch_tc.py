@@ -136,6 +136,48 @@ def test_rot_count_plain_matches_pallas(W):
     assert int(got.sum()) == want
 
 
+@pytest.mark.parametrize("W", ttc.ROT_WIDTHS)
+def test_rot_count_plain_matches_merge_and_numpy(W):
+    """K3's and K4's plain versions and a numpy set intersection agree
+    pair by pair on seeded streams in (cv, cu) order and shuffled, with
+    the all-pad sentinel row on either side of some pairs."""
+    rng = np.random.default_rng(200 + W)
+    P = 80
+    table = np.concatenate([
+        _sorted_rows(rng, rng.integers(0, W + 1, P), 300),     # cu's rows
+        _sorted_rows(rng, rng.integers(0, 129, P), 300),       # cv's rows
+        np.full((1, 128), -1, np.int32)])                      # the sentinel
+    sent = 2 * P
+    n = 333
+    cu = rng.integers(0, P, n)
+    cv = rng.integers(P, 2 * P, n)
+    cu[rng.random(n) < 0.1] = sent
+    cv[rng.random(n) < 0.1] = sent
+    cu[:2], cv[:2] = (sent, 0), (P, sent)
+    order = np.lexsort((cu, cv))
+    want = _intersections(table, cu, cv)
+    assert want.max() > 0 and (want[(cu == sent) | (cv == sent)] == 0).all()
+    t = torch.from_numpy(table)
+    for idx in (order, rng.permutation(n)):
+        u = torch.from_numpy(cu[idx].astype(np.int32))
+        v = torch.from_numpy(cv[idx].astype(np.int32))
+        rot = tc_count.rot_count(t, u, v, W, chunk=50)
+        assert rot.dtype == torch.int32
+        np.testing.assert_array_equal(rot.numpy(), want[idx])
+        np.testing.assert_array_equal(
+            tc_count.merge_count(t, u, v, W, chunk=70).numpy(), want[idx])
+
+
+def test_rot_count_rejects_width():
+    table = torch.full((2, 128), -1, dtype=torch.int32)
+    idx = torch.zeros(1, dtype=torch.int32)
+    for W in (0, 4, 12, 100, 256):
+        with pytest.raises(ValueError, match="W="):
+            tc_count.rot_count(table, idx, idx, W)
+    for W in ttc.ROT_WIDTHS:
+        assert tc_count.rot_count(table, idx, idx, W).tolist() == [0]
+
+
 def test_merge_count_plain_matches_pallas():
     """merge_count's plain version against the Pallas merge kernel in
     interpret mode and _bitonic_intersect, row by row, for the fill cases
@@ -277,22 +319,22 @@ def test_bitmap_count_plain_matches_numpy(wpad):
     assert got[0] == 32 * wpad and got[2] == 0
 
 
-CONDITIONS = ["default", "merge8", "merge256", "hub16", "no_bitmap",
-              "no_relabel", "bsearch"]
+CONDITIONS = ["default", "merge8", "merge16", "merge32", "merge64",
+              "merge128", "merge256", "hub16", "no_bitmap", "no_relabel",
+              "bsearch"]
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 @pytest.mark.parametrize("cond", CONDITIONS)
 def test_tc_solver_matches_jax_and_oracle(name, cond, monkeypatch):
     """Every route of the port counts what JAX's tc_solver and the serial
-    oracle count: all classes through K3's plain version (merge256) or
-    K4's (merge8), more hub pairs through H1's (hub16), none
+    oracle count: the port's own K3/K4 crossover (default), all classes
+    through K3's plain version (merge256) or K4's (merge8) and every
+    crossover between, more hub pairs through H1's (hub16), none
     (no_bitmap), natural ids (no_relabel), and the bsearch variant."""
     kw = {}
-    if cond == "merge8":
-        monkeypatch.setattr(ttc, "MERGE_MIN_W", 8)
-    elif cond == "merge256":
-        monkeypatch.setattr(ttc, "MERGE_MIN_W", 256)
+    if cond.startswith("merge"):
+        monkeypatch.setattr(ttc, "MERGE_MIN_W", int(cond[5:]))
     elif cond == "hub16":
         monkeypatch.setattr(ttc, "HUB_THRESHOLD", 16)
     elif cond == "no_bitmap":
