@@ -56,12 +56,48 @@ result:
      labels, against the plain route and an ELL-only min-select of the
      same matrix, exact, and timed (K2 alone, plain alone, whole sweeps)
      with CUDA events in turns plain/kernel/kernel/plain.
+  9. kernel K1 at the batched shape (the tensor-core kernel,
+     csrc/dense_panel_matmul_tc.cu) against its plain version on the card:
+     every panel array of the R-MAT-16 layout and of the f32- and
+     bf16-panel weighted layouts (f32 panels take the CUDA-core kernel at
+     any S) at S = 16, 100 and 128, with a random f32 operand (limit
+     max|diff| / max|y| < 1e-5), a random bf16 operand (one bf16 pass:
+     limit 1e-4) and a 0/1 bf16 mask (exact on integer panels: 0
+     mismatching elements); edge cases R =
+     1 and W = 1, a slot whose blocks are all zero, S = 9; then the
+     R-MAT-20 panels at S = 128 with both operand types;
+  10. BFS, multi-source BFS and Brandes BC on R-MAT-16: bfs pull, do and
+     do_fused on both layouts with depths exactly the serial oracle's;
+     bfs_multi_source (16 sources, both layouts) column by column against
+     the single-source solver; bc_solver against the serial oracle and a
+     level-synchronous numpy Brandes written here, and bc_batched (16
+     sources, both layouts) against that reference summed over the
+     sources, within the CLI's tolerance;
+  11. the BFS / MS-BFS / BC main path at R-MAT-20: the port's bench for
+     bfs, msbfs (128 sources) and bc (128 sources), each with K1's launch
+     counts set to 0 before and read after (msbfs: levels x panel arrays a
+     solve, all by the tensor-core kernel; bc: 2 x levels x arrays;
+     bfs: dense-sweep levels x arrays, by the CUDA-core kernel);
+     bfs_do_fused's depths held to the serial oracle, multi-source BFS's
+     128 columns to scipy's breadth-first order on the host CSR, batched
+     BC to its panel-free 'ell' route and two of its sources to the numpy
+     Brandes; one spmv_hybrid_batched apply timed with CUDA events in
+     turns (plain, kernel, kernel, plain): the panel kernel alone with
+     both operand types, the CUDA-core kernel at S = 128 beside it, the
+     remainder alone (segment_reduce, and index_add_ beside it), the
+     whole apply; the bytes the design reads; single-source BFS on the
+     ell layout beside the hybrid one; peak device memory of the BC solve;
+  12. cc_sv with layout="ell" beside "hybrid" on R-MAT-20 and uniform-14:
+     the first solve of a fresh graph object (relabel, upload, and the
+     layout where a round is dense) in seconds and the best of three
+     later solves in ms, one line each; and what building the hybrid
+     layout at the first solve would add (the layout's build alone).
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
-output moves once over 3.35 TB/s and the operations over the card's
-non-tensor peak, from this run's inputs; a TC stream's inputs are its
-index pairs and the distinct rows it refers to); the last line is
-{"ok": true, "device": {...}}.
+output moves once over 3.35 TB/s and the operations over the card's peak
+for their type, non-tensor or dense bf16 tensor, from this run's inputs; a
+TC stream's inputs are its index pairs and the distinct rows it refers
+to); the last line is {"ok": true, "device": {...}}.
 
 Needs CUDA: without a card, or without the repository around it, it
 exits non-zero.
@@ -81,16 +117,24 @@ SMOKE_SCALE = 16            # K1's width buckets and the oracle check
 MAIN_SCALE = 20             # the bench's default graph: |V| = 2^20
 CC_UNIFORM_SCALE = 14       # cc_sv takes a dense round there (K2 runs)
 K1_REL_LIMIT = 1e-5
+# a bf16 operand asks for one bf16 pass: its values carry 2^-9 themselves,
+# and its products are summed in the tensor core's accumulator, which
+# truncates (measured up to 9e-6 on the densest bf16-panel rows)
+K1_BF16_REL_LIMIT = 1e-4
+BATCH_SMOKE_SOURCES = 16    # multi-source BFS and BC at R-MAT-16
 K1_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul.cu"
+K1_TC_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul_tc.cu"
 K1_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:67"
 K2_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_minselect.cu"
 K2_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:113"
 SENT = 2 ** 31 - 1          # the min-select sentinel (INT32_MAX)
 # published peaks of one H100 SXM (NVIDIA's H100 datasheet): device
-# memory bytes/s, and the non-tensor f32 rate, taken for the CUDA-core
-# integer and f32 work of every kernel here (none uses tensor cores)
+# memory bytes/s; the non-tensor f32 rate, taken for the CUDA-core integer
+# and f32 work; and the dense bf16 tensor-core rate (no sparsity), taken
+# for the batched K1's mma work
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+TENSOR_BF16_OPS_PER_S = 989e12
 # triangle counting: wrapper name in ops/tc_count -> (kernel, source, the
 # TPU code it replaces; H1 replaces an XLA pass, there was no Pallas kernel)
 TC_KERNELS = {
@@ -178,11 +222,12 @@ def check_k1(hyb, label: str, S_list, dev, k1: dict) -> float:
     return worst
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, ops_per_s: float = VECTOR_OPS_PER_S
+          ) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the vector peak."""
+    operations over their peak rate (the vector peak unless given)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / VECTOR_OPS_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -436,6 +481,171 @@ def tc_compare(name, y_k, y_p, label, stats) -> None:
              f"differ from the plain version (max |diff| {err})")
 
 
+
+def turns(fns: dict, reps: dict = None, order=("plain", "kernel", "kernel",
+                                               "plain")) -> tuple:
+    """Mean ms of each fn by CUDA events, timed in turns (plain, kernel,
+    kernel, plain) on this card; returns (means, runs)."""
+    runs = {k: [] for k in fns}
+    for which in order:
+        runs[which].append(cuda_ms(fns[which], warmup=1,
+                                   reps=(reps or {}).get(which, 3)))
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs
+
+
+def check_k1_batched(hyb, label: str, S_list, dev, st: dict,
+                     quiet: bool = False) -> None:
+    """K1 at S > 8 against its plain version on every panel array of hyb:
+    a random f32 operand (limit K1_REL_LIMIT on max|diff| / max|y|), a
+    random bf16 operand (K1_BF16_REL_LIMIT) and a 0/1 bf16 mask (exact).
+    Counts into st; max_abs_err and max_rel_err are the f32 operand's."""
+    import torch
+    from gardenia_tpu_torch.ops import panel
+    qx = max(int(p.src.max()) for p in hyb.dense) + 1
+    rng = np.random.default_rng(9)
+    for S in S_list:
+        xf = torch.from_numpy(rng.random((qx, 128, S)).astype(np.float32))
+        mask = torch.from_numpy(rng.random((qx, 128, S)) < 0.3)
+        ops = (("f32", xf.to(dev)), ("bf16", xf.to(dev).to(torch.bfloat16)),
+               ("mask", mask.to(dev).to(torch.bfloat16)))
+        for p in hyb.dense:
+            route = panel.kernel_route(p.panel.dtype, torch.float32, S)
+            line = []
+            for name, x in ops:
+                y_k = panel.dense_panel_matmul(p.panel, p.src, x, S)
+                y_p = panel.dense_panel_matmul_plain(p.panel, p.src, x, S)
+                torch.cuda.synchronize()
+                if y_k.shape != y_p.shape or y_k.dtype != torch.float32:
+                    fail(f"K1 batched {label}: shape/dtype {y_k.shape} "
+                         f"{y_k.dtype} vs plain {y_p.shape}")
+                diff = (y_k - y_p).abs()
+                err = float(diff.max())
+                rel = err / max(1e-30, float(y_p.abs().max()))
+                st["arrays_checked"] += 1
+                if name == "mask" and p.panel.dtype != torch.float32:
+                    # integer cells x 0/1: every sum is an exact integer
+                    wrong = int((diff != 0).sum())
+                    st["mask_elements"] += int(diff.numel())
+                    st["mask_mismatches"] += wrong
+                    bad = wrong != 0
+                    line.append(f"mask {wrong} of {diff.numel()} differ")
+                elif name == "bf16" and route == "tc":
+                    st["max_rel_err_bf16"] = max(st["max_rel_err_bf16"], rel)
+                    bad = not (np.isfinite(rel) and rel < K1_BF16_REL_LIMIT)
+                    line.append(f"bf16 rel {rel:.2e}")
+                else:
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+                    st["max_rel_err"] = max(st["max_rel_err"], rel)
+                    bad = not (np.isfinite(rel) and rel < K1_REL_LIMIT)
+                    line.append(f"{name} rel {rel:.2e}")
+                st["mismatches"] += int(bad)
+                if bad:
+                    fail(f"K1 at S={S} disagrees with its plain version "
+                         f"({label}, {p.panel.dtype}, W={p.width}, operand "
+                         f"{name}): max|diff| {err}, rel {rel}")
+            if not quiet:
+                print(f"  K1 {label} {str(p.panel.dtype)[6:]} W={p.width:2d} "
+                      f"R={p.src.shape[0]:6d} S={S:3d} [{route}]: "
+                      + ", ".join(line))
+
+
+def k1_batched_edge_cases(dev, st: dict) -> None:
+    """Small hand-made panel arrays: one slot of one block (R = 1, W = 1),
+    a slot whose blocks are all zero beside a full one, the widest slot
+    (W = 32) with one nonzero cell per block, negative cells; at S = 9,
+    16, 100 and 128."""
+    import torch
+    from gardenia_tpu_torch.ops import bsr
+    rng = np.random.default_rng(31)
+
+    def arr(R, W, fill):
+        pn = np.zeros((R, 128, W * 128), np.int8)
+        fill(pn)
+        src = rng.integers(0, 40, (R, W)).astype(np.int32)
+        return bsr.DensePanel(torch.from_numpy(pn).to(dev),
+                              torch.from_numpy(src).to(dev),
+                              torch.arange(R, dtype=torch.int32, device=dev),
+                              W)
+
+    def sparse(pn):
+        pn[:] = (rng.random(pn.shape) < 0.01) * rng.integers(-3, 4, pn.shape)
+
+    def one_cell_a_block(pn):
+        for w in range(pn.shape[2] // 128):
+            pn[:, rng.integers(0, 128), w * 128 + rng.integers(0, 128)] = 1
+
+    def zero_slot(pn):
+        sparse(pn)
+        pn[1] = 0
+
+    cases = [("R=1 W=1", arr(1, 1, sparse)),
+             ("an all-zero slot", arr(3, 4, zero_slot)),
+             ("W=32, one cell a block", arr(2, 32, one_cell_a_block)),
+             ("dense +-127", arr(2, 2, lambda pn: pn.__setitem__(
+                 slice(None), rng.integers(-127, 128, pn.shape))))]
+    for label, p in cases:
+        hyb = bsr.HybridMatrix((p,), None, None, None, None)
+        check_k1_batched(hyb, f"edge case {label}", (9, 16, 100, 128), dev,
+                         st, quiet=True)
+    print(f"[9] K1 batched edge cases: {len(cases)} arrays x S (9, 16, 100, "
+          f"128) x 3 operands equal to the plain version")
+
+
+def brandes_numpy(g, s: int) -> np.ndarray:
+    """Brandes' dependencies from source s (source level included),
+    float64, not normalized: level-synchronous numpy over the host CSR,
+    independent of the port's torch code."""
+    m = g.m
+    src = np.repeat(np.arange(m, dtype=np.int64), np.diff(g.rowptr))
+    dst = np.asarray(g.colidx, np.int64)
+    depth = np.full(m, -1, np.int64)
+    sigma = np.zeros(m, np.float64)
+    depth[s], sigma[s] = 0, 1.0
+    d = 0
+    while True:
+        on = depth[src] == d
+        tgt = dst[on]
+        depth[tgt[depth[tgt] < 0]] = d + 1
+        sel = depth[tgt] == d + 1
+        if not sel.any():
+            break
+        np.add.at(sigma, tgt[sel], sigma[src[on][sel]])
+        d += 1
+    delta = np.zeros(m, np.float64)
+    for lvl in range(d - 1, -1, -1):
+        e = (depth[src] == lvl) & (depth[dst] == lvl + 1)
+        u, v = src[e], dst[e]
+        np.add.at(delta, u, sigma[u] / sigma[v] * (1.0 + delta[v]))
+    return delta
+
+
+def normalized(scores: np.ndarray) -> np.ndarray:
+    return (scores / max(scores.max(), 1e-30)).astype(np.float32)
+
+
+def bfs_depths_scipy(g, sources) -> np.ndarray:
+    """(m, S) int32 BFS depths from scipy's breadth_first_order on the
+    host CSR: a node's depth is its predecessor's plus one, filled in
+    level by level along the order."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import breadth_first_order
+    from gardenia_tpu_torch.core import types as T
+    a = sp.csr_matrix((np.ones(g.nnz, np.int8), g.colidx, g.rowptr),
+                      shape=(g.m, g.m))
+    out = np.full((g.m, len(sources)), T.MYINFINITY, np.int32)
+    for j, s in enumerate(sources):
+        order, pred = breadth_first_order(a, int(s), directed=True,
+                                          return_predecessors=True)
+        depth = out[:, j]
+        depth[s] = 0
+        todo = order[1:]
+        while todo.size:                       # one pass per level
+            ready = depth[pred[todo]] != T.MYINFINITY
+            depth[todo[ready]] = depth[pred[todo[ready]]] + 1
+            todo = todo[~ready]
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -448,6 +658,7 @@ def main() -> None:
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.core import views
     from gardenia_tpu_torch.ops import _build, bsr, panel
+    from gardenia_tpu_torch.bench import SOURCES
     from gardenia_tpu_torch.solvers.pr import EPSILON, pr_solver
 
     dev = gardenia_tpu_torch.resolve_device("cuda")
@@ -527,9 +738,9 @@ def main() -> None:
     print(f"[4] host set-up: generate {t_gen:.1f} s, relabel + build_hybrid"
           f" + upload {time.perf_counter() - t0:.1f} s")
     solves = bench.WARMUP + bench.ITERS
-    panel.LAUNCHES = 0
+    panel.LAUNCHES.update(simt=0, tc=0)
     record, g, res = bench.bench_pr(MAIN_SCALE, dev, g=g)
-    launches = panel.LAUNCHES
+    launches = panel.LAUNCHES["simt"]
     print(json.dumps(record))
     _, hyb, _ = views.relabeled_hybrid(g, dev)
     n_panels = len(hyb.dense)
@@ -542,9 +753,9 @@ def main() -> None:
         fail(f"PR did not converge: {iters} iterations")
     if launches == 0 or launches != solves * iters * n_panels:
         fail(f"K1 launches {launches} != {solves} x {iters} x {n_panels}")
-    panel.LAUNCHES = 0
+    panel.LAUNCHES.update(simt=0, tc=0)
     res = pr_solver(g, device=dev)
-    one = panel.LAUNCHES
+    one = panel.LAUNCHES["simt"]
     scores = res.scores.cpu().numpy()
     if scores.shape != (g.m,) or not np.isfinite(scores).all():
         fail("scores are not finite of shape (m,)")
@@ -875,15 +1086,364 @@ def main() -> None:
           + json.dumps({k: [round(v, 4) for v in vs]
                         for k, vs in t.items()}) + ")")
 
+
+    # ---- 9. K1 at the batched shape against its plain version ------------
+    from gardenia_tpu_torch.cli import bc_close
+    from gardenia_tpu_torch.solvers import bc, bfs
+    kb_stats = {"arrays_checked": 0, "mismatches": 0, "max_abs_err": 0.0,
+                "max_rel_err": 0.0, "max_rel_err_bf16": 0.0,
+                "mask_elements": 0, "mask_mismatches": 0}
+    before_check = dict(panel.LAUNCHES)
+    check_k1_batched(hyb16, f"rmat{SMOKE_SCALE}", (16, 100, 128), dev,
+                     kb_stats)
+    for kind, hw in weighted.items():
+        check_k1_batched(hw, f"weighted-{kind}", (16, 100, 128), dev,
+                         kb_stats)
+    k1_batched_edge_cases(dev, kb_stats)
+    small_rel = kb_stats["max_rel_err"]
+    kb_stats["max_abs_err"] = 0.0       # below: the main path's shapes only
+    check_k1_batched(hyb, f"rmat{MAIN_SCALE}", (SOURCES,), dev, kb_stats)
+    by_route = {k: panel.LAUNCHES[k] - before_check[k]
+                for k in before_check}
+    print(f"[9] K1 batched vs plain: {json.dumps(kb_stats)}; worst rel at "
+          f"the small shapes {small_rel:.3e}; launches of the check by "
+          f"route {by_route} (f32 panels take the CUDA-core kernel)")
+    if by_route["tc"] == 0 or kb_stats["mask_mismatches"]:
+        fail("the tensor-core kernel did not run, or a mask product is "
+             "inexact")
+
+    # ---- 10. BFS, multi-source BFS and BC on R-MAT-16 --------------------
+    src16 = int(np.argmax(g16.degrees))
+    t0 = time.perf_counter()
+    want_d16 = oracles.bfs_serial(g16, src16)
+    t_or = time.perf_counter() - t0
+    for variant, layouts in (("pull", ("hybrid", "ell")), ("do", (None,)),
+                             ("do_fused", ("hybrid", "ell"))):
+        for layout in layouts:
+            kw = {} if layout is None else {"layout": layout}
+            r16 = bfs.VARIANTS[variant](g16, src16, device=dev, **kw)
+            same = bool((r16.dist.cpu().numpy() == want_d16).all())
+            print(f"[10] bfs {variant} {layout or '-'} rmat{SMOKE_SCALE}: "
+                  f"{r16.iterations} iterations, depths "
+                  f"{'equal' if same else 'NOT equal'} to the serial oracle")
+            if not same or r16.dist.dtype != torch.int32:
+                fail(f"bfs {variant} {layout} disagrees with the serial "
+                     f"oracle at rmat{SMOKE_SCALE}")
+    srcs16 = (np.arange(BATCH_SMOKE_SOURCES) * 4099) % g16.m
+    single = [bfs.bfs_pull(g16, int(sv), layout="ell", device=dev).dist
+              for sv in srcs16]
+    for layout in ("hybrid", "ell"):
+        panel.LAUNCHES.update(simt=0, tc=0)
+        ms16 = bfs.bfs_multi_source(g16, srcs16, layout=layout, device=dev)
+        bad = sum(int((ms16.dist[:, j] != single[j]).sum())
+                  for j in range(len(srcs16)))
+        print(f"[10] msbfs {layout} rmat{SMOKE_SCALE}, {len(srcs16)} "
+              f"sources: {ms16.iterations} levels, {bad} depths differ from "
+              f"the single-source solver, K1 launches {panel.LAUNCHES}")
+        if bad or tuple(ms16.dist.shape) != (g16.m, len(srcs16)):
+            fail(f"bfs_multi_source ({layout}) disagrees with bfs_pull")
+        if (layout == "hybrid") != (panel.LAUNCHES["tc"] > 0):
+            fail(f"msbfs {layout}: K1 launches {panel.LAUNCHES}")
+    t0 = time.perf_counter()
+    want_bc16 = oracles.bc_serial(g16, src16)
+    t_or += time.perf_counter() - t0
+    delta16 = {int(sv): brandes_numpy(g16, int(sv)) for sv in srcs16}
+    ref_one = normalized(brandes_numpy(g16, src16))
+    one16 = bc.bc_solver(g16, src16, device=dev)
+    ok_ref = bc_close(ref_one, want_bc16)
+    ok_one = bc_close(one16.scores.cpu().numpy(), want_bc16)
+    print(f"[10] bc_solver rmat{SMOKE_SCALE} source {src16}: "
+          f"{one16.iterations} levels, vs serial oracle "
+          f"{'Correct' if ok_one else 'Wrong'}; numpy Brandes vs serial "
+          f"oracle {'Correct' if ok_ref else 'Wrong'} (serial oracles "
+          f"{t_or:.1f} s)")
+    if not (ok_ref and ok_one):
+        fail("bc_solver or the numpy Brandes disagrees with the serial "
+             "oracle")
+    want_multi = normalized(sum(delta16.values()))
+    for layout in ("hybrid", "ell"):
+        b16 = bc.bc_batched(g16, srcs16, layout=layout, device=dev)
+        ok = bc_close(b16.scores.cpu().numpy(), want_multi)
+        print(f"[10] bc_batched {layout} rmat{SMOKE_SCALE}, {len(srcs16)} "
+              f"sources: {b16.iterations} levels, vs the numpy Brandes "
+              f"{'Correct' if ok else 'Wrong'}")
+        if not ok:
+            fail(f"bc_batched ({layout}) disagrees with the reference")
+
+    # ---- 11. the BFS / MS-BFS / BC main path at R-MAT-20 -----------------
+    solves = bench.WARMUP + bench.ITERS
+    taken = []
+    pick = bfs._pick_branch
+    bfs._pick_branch = lambda *a: (taken.append(pick(*a)), taken[-1])[1]
+    try:
+        panel.LAUNCHES.update(simt=0, tc=0)
+        rec_bfs, g, res_bfs = bench.bench_bfs(MAIN_SCALE, dev, g=g)
+    finally:
+        bfs._pick_branch = pick
+    bfs_routes = dict(panel.LAUNCHES)
+    print(json.dumps(rec_bfs))
+    n_tiers = len(bfs.fused_tiers(g.m, g.nnz))
+    per_solve = taken[:res_bfs.iterations]
+    dense_levels = sum(1 for i in per_solve if i == 2 * n_tiers)
+    print(f"[11] bfs_do_fused rmat{MAIN_SCALE} from "
+          f"{rec_bfs['detail']['source']}: {res_bfs.iterations} levels, "
+          f"branches {per_solve} "
+          f"({dense_levels} dense sweeps), K1 launches {bfs_routes} over "
+          f"{solves} solves")
+    if bfs_routes != {"simt": dense_levels * n_panels * solves, "tc": 0}:
+        fail(f"bfs K1 launches {bfs_routes} != dense levels x arrays x solves")
+    t0 = time.perf_counter()
+    want_d = oracles.bfs_serial(g, rec_bfs["detail"]["source"])
+    same = bool((res_bfs.dist.cpu().numpy() == want_d).all())
+    print(f"[11] bfs_do_fused depths {'equal' if same else 'NOT equal'} to "
+          f"the serial oracle ({time.perf_counter() - t0:.1f} s); "
+          f"{int((want_d < bfs.INF).sum())} vertices reached, eccentricity "
+          f"{int(want_d[want_d < bfs.INF].max())}")
+    if not same:
+        fail(f"bfs_do_fused disagrees with the serial oracle at "
+             f"rmat{MAIN_SCALE}")
+    bfs_ms = {}
+    for variant in ("do_fused", "pull"):
+        for layout in ("hybrid", "ell"):
+            fn = functools.partial(bfs.VARIANTS[variant], g,
+                                   rec_bfs["detail"]["source"], layout=layout,
+                                   device=dev)
+            if not bool((fn().dist.cpu().numpy() == want_d).all()):
+                fail(f"bfs {variant} {layout} disagrees with the oracle")
+            t = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            bfs_ms[f"{variant} {layout}"] = min(t)
+    print(f"[11] gpu: {gpu}")
+    print(f"[11] single-source BFS solve ms (best of 3, host clock), hybrid "
+          f"beside ell: " + json.dumps(bfs_ms))
+
+    panel.LAUNCHES.update(simt=0, tc=0)
+    rec_ms, g, res_ms = bench.bench_msbfs(MAIN_SCALE, dev, g=g)
+    ms_routes = dict(panel.LAUNCHES)
+    print(json.dumps(rec_ms))
+    print(f"[11] msbfs rmat{MAIN_SCALE}, {SOURCES} sources: "
+          f"{res_ms.iterations} levels, K1 launches {ms_routes} over "
+          f"{solves} solves ({n_panels} panel arrays)")
+    if ms_routes != {"simt": 0,
+                     "tc": res_ms.iterations * n_panels * solves}:
+        fail(f"msbfs K1 launches {ms_routes} != levels x arrays x solves, "
+             f"all by the tensor-core kernel")
+    t0 = time.perf_counter()
+    want_ms = bfs_depths_scipy(g, np.arange(SOURCES))
+    bad_cols = int((res_ms.dist.cpu().numpy() != want_ms).any(axis=0).sum())
+    print(f"[11] msbfs depths vs scipy breadth_first_order: {bad_cols} of "
+          f"{SOURCES} columns differ ({time.perf_counter() - t0:.1f} s); "
+          f"sources that reach more than themselves: "
+          f"{int(((want_ms < bfs.INF).sum(axis=0) > 1).sum())}")
+    if bad_cols or tuple(res_ms.dist.shape) != (g.m, SOURCES):
+        fail("bfs_multi_source disagrees with the independent reference")
+    del res_ms, want_ms
+
+    bc_solves = bench.BC_WARMUP + bench.BC_ITERS
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    panel.LAUNCHES.update(simt=0, tc=0)
+    rec_bc, g, res_bc = bench.bench_bc(MAIN_SCALE, dev, g=g)
+    bc_routes = dict(panel.LAUNCHES)
+    peak_bc = torch.cuda.max_memory_allocated() - resident
+    print(json.dumps(rec_bc))
+    bc_sweeps = 2 * res_bc.iterations          # forward + backward levels
+    print(f"[11] bc_batched rmat{MAIN_SCALE}, {SOURCES} sources: "
+          f"{res_bc.iterations} forward levels, K1 launches {bc_routes} over"
+          f" {bc_solves} solves, peak device memory of the solve "
+          f"{peak_bc / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB "
+          f"resident before it")
+    if bc_routes != {"simt": 0, "tc": bc_sweeps * n_panels * bc_solves}:
+        fail(f"bc K1 launches {bc_routes} != (forward + backward levels) x "
+             f"arrays x solves, all by the tensor-core kernel")
+    sc = res_bc.scores.cpu().numpy()
+    if sc.shape != (g.m,) or not np.isfinite(sc).all() or sc.max() != 1.0:
+        fail("bc scores are not finite of shape (m,) with a max of 1")
+    t0 = time.perf_counter()
+    sc_ell = bc.bc_batched(g, np.arange(SOURCES), layout="ell",
+                           device=dev).scores.cpu().numpy()
+    torch.cuda.synchronize()
+    ok = bc_close(sc, sc_ell)
+    print(f"[11] bc_batched hybrid vs its panel-free ell route "
+          f"({time.perf_counter() - t0:.1f} s): max|diff| "
+          f"{float(np.abs(sc - sc_ell).max()):.3e}: "
+          f"{'Correct' if ok else 'Wrong'}")
+    if not ok:
+        fail("bc_batched disagrees with its ell route")
+    for sv in (0, rec_bfs["detail"]["source"]):
+        t0 = time.perf_counter()
+        want_sv = normalized(brandes_numpy(g, sv))
+        got = {"bc_batched hybrid, one source": bc.bc_batched(
+                   g, [sv], device=dev).scores.cpu().numpy(),
+               "bc_solver": bc.bc_solver(g, sv, device=dev).scores.cpu()
+               .numpy()}
+        oks = {k: bc_close(v, want_sv) for k, v in got.items()}
+        print(f"[11] source {sv} vs the numpy Brandes "
+              f"({time.perf_counter() - t0:.1f} s): " + json.dumps(oks))
+        if not all(oks.values()):
+            fail(f"BC from source {sv} disagrees with the numpy Brandes")
+    del res_bc
+
+    # one spmv_hybrid_batched apply at the main path's shapes
+    rng = np.random.default_rng(12)
+    xf = torch.from_numpy(rng.random((g.n, SOURCES)).astype(np.float32)) \
+        .to(dev)
+    xm = (xf < 0.3).to(torch.bfloat16)
+    qx = g.n // 128
+    x3f, x3m = xf.view(qx, 128, SOURCES), xm.view(qx, 128, SOURCES)
+    k1w, k1p = panel.dense_panel_matmul, panel.dense_panel_matmul_plain
+
+    def sweep(fn, x3):
+        return lambda: [fn(p.panel, p.src, x3, SOURCES) for p in hyb.dense]
+
+    def simt_sweep():
+        """The CUDA-core kernel at S = 128, where the wrapper no longer
+        sends int8 panels: its entry, called as the wrapper calls it."""
+        from gardenia_tpu_torch.ops import _build
+        stream = torch.cuda.current_stream().cuda_stream
+        outs = []
+        for p in hyb.dense:
+            out = torch.empty((p.src.shape[0], 128, SOURCES),
+                              dtype=torch.float32, device=dev)
+            _build.check(_build.lib().gdn_dense_panel_matmul(
+                p.panel.data_ptr(), 0, p.src.data_ptr(), x3f.data_ptr(),
+                out.data_ptr(), *p.src.shape, SOURCES, stream),
+                "dense_panel_matmul (simt)")
+            outs.append(out)
+        return outs
+
+    kb_ms, kb_runs = {}, {}
+    for name, x3 in (("f32", x3f), ("bf16", x3m)):
+        m_, r_ = turns({"kernel": sweep(k1w, x3), "plain": sweep(k1p, x3)},
+                       reps={"kernel": 5, "plain": 1})
+        kb_ms[name], kb_runs[name] = m_, r_
+    if any(p.panel.dtype != torch.int8 for p in hyb.dense):
+        fail(f"rmat{MAIN_SCALE}'s panels are not int8")
+    for y_s, y_t in zip(simt_sweep(), sweep(k1w, x3f)()):
+        rel = float((y_s - y_t).abs().max() / y_t.abs().max())
+        if not rel < K1_REL_LIMIT:
+            fail(f"K1's two kernels disagree at S={SOURCES}: rel {rel}")
+    del y_s, y_t
+    simt_ms = cuda_ms(simt_sweep, reps=2, warmup=1)
+    zeros = functools.partial(torch.zeros, (g.m, SOURCES), device=dev)
+    rem_ms = {
+        "segment_reduce f32": cuda_ms(lambda: bsr.batched_remainder(
+            hyb, xf, g.m), reps=3, warmup=1),
+        "segment_reduce bf16 mask": cuda_ms(lambda: bsr.batched_remainder(
+            hyb, xm, g.m), reps=3, warmup=1),
+        "index_add_ f32": cuda_ms(lambda: zeros().index_add_(
+            0, hyb.rem_dst, xf[hyb.rem_src]), reps=3, warmup=1)}
+    apply_ms = {name: cuda_ms(lambda: bsr.spmv_hybrid_batched(
+        hyb, x, num_rows=g.m), reps=3, warmup=1)
+        for name, x in (("f32", xf), ("bf16 mask", xm))}
+    slots = sum(p.src.shape[0] for p in hyb.dense)
+    _, cells, nz = panel_work(hyb, 0)
+    panel_bytes = sum(p.panel.numel() * p.panel.element_size()
+                      + p.src.numel() * 4 for p in hyb.dense)
+    out_bytes = slots * 128 * SOURCES * 4
+    kb_bound, kb_read = {}, {}
+    for name, x_el, terms in (("f32", 4, 3), ("bf16", 2, 1)):
+        need = panel_bytes + qx * 128 * SOURCES * x_el + out_bytes
+        # the products the data needs: the nonzero cells' (a multiply
+        # and an add for each column and bf16 term), not every cell's
+        kb_bound[name] = bound(need, 2 * nz * SOURCES * terms,
+                               TENSOR_BF16_OPS_PER_S)
+        # as designed: every block's operand block is staged once per slot
+        kb_read[name] = (panel_bytes + out_bytes
+                         + hyb.num_blocks * 128 * SOURCES * x_el)
+    print(f"[11] gpu: {gpu}")
+    print(f"[11] dense panels, one sweep at S={SOURCES} ({slots} slots, "
+          f"{hyb.num_blocks} blocks, {nz} nonzero of {cells} cells): "
+          + "; ".join(
+              f"{name} operand: kernel {kb_ms[name]['kernel']:.3f} ms, plain "
+              f"{kb_ms[name]['plain']:.3f} ms, bound {kb_bound[name][0]:.3f}"
+              f" ms ({kb_bound[name][1]}), the design reads "
+              f"{kb_read[name] / 1e9:.2f} GB -> "
+              f"{kb_read[name] / kb_ms[name]['kernel'] / 1e6:.0f} GB/s"
+              for name in ("f32", "bf16"))
+          + f"; the CUDA-core kernel at S={SOURCES} (16 passes) "
+          f"{simt_ms:.3f} ms (runs " + json.dumps(
+              {n_: {k: [round(v, 3) for v in vs] for k, vs in r_.items()}
+               for n_, r_ in kb_runs.items()}) + ")")
+    print(f"[11] the batched remainder, {hyb.rem_dst.shape[0]} edges x "
+          f"{SOURCES * 4} B rows: " + json.dumps(rem_ms)
+          + "; the whole apply: " + json.dumps(apply_ms))
+    del xf, xm, x3f, x3m
+
+    # ---- 12. C5: cc_sv's ell layout beside hybrid ------------------------
+    from gardenia_tpu_torch.core.graph import from_csr_of
+    for label, graph in ((f"rmat{MAIN_SCALE}", g),
+                         (f"uniform{CC_UNIFORM_SCALE}", gu)):
+        for layout in ("ell", "hybrid"):
+            fresh = from_csr_of(graph)          # same arrays, empty caches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = cc.cc_sv(fresh, layout=layout, device=dev)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            t = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cc.cc_sv(fresh, layout=layout, device=dev)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            built = None
+            if layout == "hybrid":      # did a dense round ask for it?
+                g2f = views.relabel_maps(fresh, dev)[0]
+                built = views._key("hybrid", dev, views._dir(g2f, False)) \
+                    in g2f._device_cache
+            print(f"[12] cc_sv {layout:6s} {label}: first solve "
+                  f"{t_first:.2f} s, then best of 3 {min(t):.3f} ms "
+                  f"({first.iterations} rounds"
+                  + ("" if built is None else
+                     f"; hybrid layout built: {built}") + ")")
+            if layout == "hybrid" and label.startswith("rmat"):
+                t0 = time.perf_counter()
+                views.hybrid(views.relabel_maps(fresh, dev)[0], dev)
+                torch.cuda.synchronize()
+                print(f"[12] building and uploading the hybrid layout of "
+                      f"{label}, which the first solve no longer does: "
+                      f"{time.perf_counter() - t0:.2f} s")
+            del fresh
+    print(f"[12] gpu: {gpu}")
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
+        "replaces": K1_REPLACES, "launches": launches + bfs_routes["simt"],
+        "launches_by_path": {f"pr bench rmat{MAIN_SCALE}": launches,
+                             f"bfs bench rmat{MAIN_SCALE}":
+                             bfs_routes["simt"]},
         "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
         "plain_ms": ms["dense_plain"],
         # the same bytes as K2's sweep (S = 1: one f32 out per row), a
         # multiply and an add per cell
         **dict(zip(("bound_ms", "bound_by"), bound(k2_bytes, 2 * cells))),
+        "library_ms": None}, {
+        # K1 at the batched shape: ms, plain_ms and bound are the f32
+        # operand's (BC's sweep); the bf16 operand's (MS-BFS's) beside them
+        "name": "dense_panel_matmul_tc", "route": "cuda",
+        "source": K1_TC_SOURCE, "replaces": K1_REPLACES, "columns": SOURCES,
+        "launches": ms_routes["tc"] + bc_routes["tc"],
+        "launches_by_path": {f"msbfs bench rmat{MAIN_SCALE}": ms_routes["tc"],
+                             f"bc bench rmat{MAIN_SCALE}": bc_routes["tc"]},
+        "mismatches": kb_stats["mismatches"],
+        "max_abs_err": kb_stats["max_abs_err"],
+        "ms": kb_ms["f32"]["kernel"], "plain_ms": kb_ms["f32"]["plain"],
+        "bound_ms": kb_bound["f32"][0], "bound_by": kb_bound["f32"][1],
+        "bytes_read": kb_read["f32"],
+        "ms_bf16_operand": kb_ms["bf16"]["kernel"],
+        "plain_ms_bf16_operand": kb_ms["bf16"]["plain"],
+        "bound_ms_bf16_operand": kb_bound["bf16"][0],
+        "bytes_read_bf16_operand": kb_read["bf16"],
+        "simt_route_ms": simt_ms,
         "library_ms": None}, {
         "name": "dense_panel_minselect", "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_REPLACES,

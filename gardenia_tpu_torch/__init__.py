@@ -19,6 +19,12 @@ Slice 3 is connected components:
   pointer_jump, ops/frontier sparse rounds; dense rounds through
   ops/bsr.spmv_hybrid_min_select = ops/minselect K2 + the ELL min-select)
   and cc_afforest -> cli / bench.
+Slice 6 is BFS, multi-source BFS and Brandes BC (and PR's push and delta):
+  solvers/bfs (pull, do, do_fused over ops/frontier and the count sweep
+  ops/bsr.spmv_hybrid; bfs_multi_source) and solvers/bc (bc_batched,
+  bc_solver) -> ops/bsr.spmv_hybrid_batched (ops/panel K1 on tensor cores
+  for S > 8 + a row gather and segment sum, ops/spmv.spmv_batched)
+  -> cli / bench.
 """
 
 from __future__ import annotations

@@ -13,17 +13,30 @@ repo's bench.py:
        one warm-up solve that also relabels, preps and uploads; vs 2000
        M edges/s; detail.triangles is the count.
   cc — `cc_sv_ms_rmat{scale}`: ms of cc_sv on the hybrid layout, best of
-       3 after one warm-up solve that also relabels, builds and uploads;
+       3 after one warm-up solve that also relabels and uploads (the
+       layout's panels are built only if a round is dense);
        vs_baseline = 1.0 ms per M edges / the measured ms per M edges;
        detail.rounds, and detail.k2_launches — K2's launches over the 4
        solves (0 when no round is dense).
+  bfs — `bfs_dofused_gteps_rmat{scale}`: edges / solve time of the fused
+       direction-optimizing BFS from the vertex of highest degree, best of
+       3 after one warm-up; vs 30 GTEPS; detail.levels, detail.relax_gteps
+       (edges x levels / time), detail.k1_launches over the 4 solves.
+  msbfs — `msbfs128_gteps_rmat{scale}`: edges x sources / solve time of
+       bfs_multi_source from sources 0..127, best of 3 after one warm-up;
+       vs 30 GTEPS; detail.levels, detail.k1_launches and
+       detail.k1_tc_launches (the tensor-core route's share).
+  bc — `bc_batched128_gteps_rmat{scale}`: 2 x edges x sources / solve time
+       of bc_batched from sources 0..127 (Brandes walks every edge forward
+       and backward), best of 2 after one warm-up; vs 5 GTEPS; the same
+       details.
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
 must not round to 0.
 
-Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc,cc}] [--scale 20]
-                                        [--device cuda]
+Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc,cc,bfs,msbfs,bc}]
+                                        [--scale 20] [--device cuda]
 """
 
 from __future__ import annotations
@@ -35,10 +48,15 @@ import time
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.ops import panel
 
 BASELINE_GTEPS = 2.0      # the constants of the repo's bench.py
 BASELINE_TC_MEPS = 2000.0
 BASELINE_CC_MS_PER_MEDGE = 1.0
+BASELINE_BFS_GTEPS = 30.0
+BASELINE_BC_GTEPS = 5.0
+SOURCES = 128             # msbfs and bc: sources 0..127, as bench.py takes
+BC_WARMUP, BC_ITERS = 1, 2
 # pr and cc: untimed solves (layout build, upload), then timed solves
 WARMUP, ITERS = 1, 3
 TC_WARMUP, TC_ITERS = 1, 2    # tc: the same, as bench.py:253-263
@@ -117,7 +135,88 @@ def bench_cc(scale: int, device="cuda", g=None):
     return record, g, res
 
 
-KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc}
+def _k1_launches(before):
+    """K1's launches since `before`, a copy of panel.LAUNCHES."""
+    since = {k: n - before[k] for k, n in panel.LAUNCHES.items()}
+    return {"k1_launches": sum(since.values()),
+            "k1_tc_launches": since["tc"]}
+
+
+def bench_bfs(scale: int, device="cuda", g=None):
+    """(record, graph, last BFSResult) of the single-source BFS benchmark
+    (bench.py:191-213): bfs_do_fused from the vertex of highest degree, a
+    deterministic well-connected source (R-MAT leaves some low ids
+    isolated)."""
+    import numpy as np
+    from gardenia_tpu_torch.solvers.bfs import bfs_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    src = int(np.argmax(g.degrees))
+    before = dict(panel.LAUNCHES)
+    res, secs = time_op(lambda: bfs_solver(g, src, variant="do_fused",
+                                           device=dev),
+                        warmup=WARMUP, iters=ITERS, device=dev)
+    gteps = g.nnz / secs / 1e9
+    record = {"metric": f"bfs_dofused_gteps_rmat{scale}", "value": gteps,
+              "unit": "GTEPS", "vs_baseline": gteps / BASELINE_BFS_GTEPS,
+              "detail": {"levels": res.iterations, "source": src,
+                         "relax_gteps": g.nnz * res.iterations / secs / 1e9,
+                         "ms": secs * 1e3, "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev), **_k1_launches(before)}}
+    return record, g, res
+
+
+def bench_msbfs(scale: int, device="cuda", g=None, sources: int = SOURCES):
+    """(record, graph, last BFSResult) of the multi-source BFS benchmark
+    (bench.py:216-233): aggregated TEPS over S concurrent sources, each
+    source's traversal counting nnz edges."""
+    import numpy as np
+    from gardenia_tpu_torch.solvers.bfs import bfs_multi_source
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    srcs = np.arange(sources)
+    before = dict(panel.LAUNCHES)
+    res, secs = time_op(lambda: bfs_multi_source(g, srcs, device=dev),
+                        warmup=WARMUP, iters=ITERS, device=dev)
+    gteps = g.nnz * sources / secs / 1e9
+    record = {"metric": f"msbfs{sources}_gteps_rmat{scale}", "value": gteps,
+              "unit": "GTEPS", "vs_baseline": gteps / BASELINE_BFS_GTEPS,
+              "detail": {"sources": sources, "levels": res.iterations,
+                         "ms": secs * 1e3, "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev), **_k1_launches(before)}}
+    return record, g, res
+
+
+def bench_bc(scale: int, device="cuda", g=None, sources: int = SOURCES):
+    """(record, graph, last BCResult) of the batched Brandes benchmark
+    (bench.py:269-285)."""
+    import numpy as np
+    from gardenia_tpu_torch.solvers.bc import bc_batched
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    srcs = np.arange(sources)
+    before = dict(panel.LAUNCHES)
+    res, secs = time_op(lambda: bc_batched(g, srcs, device=dev),
+                        warmup=BC_WARMUP, iters=BC_ITERS, device=dev)
+    # Brandes traverses each edge twice (forward + backward) per source
+    gteps = 2 * g.nnz * sources / secs / 1e9
+    record = {"metric": f"bc_batched{sources}_gteps_rmat{scale}",
+              "value": gteps, "unit": "GTEPS",
+              "vs_baseline": gteps / BASELINE_BC_GTEPS,
+              "detail": {"sources": sources, "levels": res.iterations,
+                         "ms": secs * 1e3, "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev), **_k1_launches(before)}}
+    return record, g, res
+
+
+KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
+           "msbfs": bench_msbfs, "bc": bench_bc}
 
 
 def main(argv=None):

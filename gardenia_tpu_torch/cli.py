@@ -1,24 +1,37 @@
-"""Benchmark CLI of the port — the `pr`, `tc` and `cc` kernels, with the
-positional argv of gardenia_tpu/cli.py:
+"""Benchmark CLI of the port — the `pr`, `tc`, `cc`, `bfs` and `bc`
+kernels, with the positional argv of gardenia_tpu/cli.py:
 
-  python -m gardenia_tpu_torch.cli {pr,tc,cc} <filetype> <graph-prefix|scale>
-                                   [symmetrize] [--device {cuda,cpu}]
+  python -m gardenia_tpu_torch.cli <kernel> <filetype> <graph-prefix|scale>
+                                   [symmetrize] [kernel args...]
+                                   [--variant=NAME] [--device={cuda,cpu}]
 e.g.
   python -m gardenia_tpu_torch.cli pr rmat 20
-  python -m gardenia_tpu_torch.cli pr mtx soc-LiveJournal1 0 --device cpu
-  python -m gardenia_tpu_torch.cli tc rmat 20
-  python -m gardenia_tpu_torch.cli cc rmat 20
+  python -m gardenia_tpu_torch.cli pr mtx soc-LiveJournal1 0 --device=cpu
+  python -m gardenia_tpu_torch.cli pr rmat 20 --variant=delta
+  python -m gardenia_tpu_torch.cli tc rmat 20 --variant=bsearch
+  python -m gardenia_tpu_torch.cli cc rmat 20 --variant=afforest
+  python -m gardenia_tpu_torch.cli bfs rmat 20 1 0 5 --variant=do_fused
+  python -m gardenia_tpu_torch.cli bc rmat 20
 
-Each prints the reference's contract lines: '|V| <m> |E| <nnz>', the
-kernel's own lines (pr: the error trace, 'runtime [pull] = X ms.',
-'GTEPS = ...'; tc: 'runtime [base] = X sec', 'total_num_triangles = N';
-cc: 'runtime [sv] = X ms.', 'num_components = N') and the serial
-oracle's 'Correct'/'Wrong'.
+Flags may stand anywhere among the positionals, as in the reference's CLI
+(`--device cpu` in two words is taken too); an unknown flag prints a
+message and returns 1.  The device is cuda unless asked otherwise.
+`--dist=` (the reference's multichip runs) is refused: the port has no
+multi-device solvers yet.
+
+Each kernel prints the reference's contract lines: '|V| <m> |E| <nnz>',
+the kernel's own lines (pr: the error trace, 'runtime [<variant>] = X
+ms.', 'GTEPS = ...'; tc: 'runtime [<variant>] = X sec',
+'total_num_triangles = N'; cc: 'runtime [<variant>] = X ms.',
+'num_components = N'; bfs and bc: 'iterations = N.', 'runtime [<variant>]
+= X ms.', bfs also 'GTEPS = ...') and the serial oracle's
+'Correct'/'Wrong'.  bfs takes [symmetrize] [reverse] [source] and bc the
+same after the graph (src/bfs/main.cc:8-19).  `main` returns 1 on
+'Wrong'.
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 
 import numpy as np
@@ -31,9 +44,10 @@ from gardenia_tpu_torch.utils.timer import time_op
 
 
 def _load(args, symmetrize_default=False, need_reverse=False):
-    """The Graph named by <filetype> <prefix|scale> [symmetrize]; each
-    run_* function picks the symmetrize default and whether the reverse
-    view is built (the pull sweeps read in-edges)."""
+    """(the Graph named by <filetype> <prefix|scale> [symmetrize], the
+    positionals after them); each run_* function picks the symmetrize
+    default and whether the reverse view is built (the pull sweeps read
+    in-edges)."""
     filetype, prefix = args[0], args[1]
     symmetrize = bool(int(args[2])) if len(args) > 2 else symmetrize_default
     if filetype in ("rmat", "uniform"):
@@ -46,31 +60,35 @@ def _load(args, symmetrize_default=False, need_reverse=False):
         g = load_graph(prefix, filetype, symmetrize=symmetrize,
                        need_reverse=need_reverse)
     print(f"|V| {g.m} |E| {g.nnz}")
-    return g
+    return g, args[3:]
 
 
-def run_pr(args, device) -> bool:
+def run_pr(args, device, variant="pull") -> bool:
     print("PageRank by gardenia_tpu_torch")
-    g = _load(args, need_reverse=True)
+    g, _ = _load(args, need_reverse=True)
     from gardenia_tpu_torch.solvers.pr import (EPSILON, pr_print_trace,
                                                pr_solver)
-    res, secs = time_op(lambda: pr_solver(g, device=device), device=device)
+    res, secs = time_op(lambda: pr_solver(g, variant=variant, device=device),
+                        device=device)
     pr_print_trace(res)
-    report_runtime("pull", secs)
+    report_runtime(variant, secs)
     print(f"GTEPS = {gteps(g.nnz, secs, res.iterations):.4f}")
     resid = oracles.pagerank_push_residual(g, res.scores.cpu().numpy())
     return check(resid < EPSILON, f"(residual {resid})")
 
 
-def run_tc(args, device) -> bool:
+def run_tc(args, device, variant="base") -> bool:
     """tc <filetype> <graph> (src/tc/main.cc:5-9): symmetrizes by default
-    and applies the DAG orientation itself."""
+    and applies the DAG orientation itself.  'base' is the rotate solver,
+    as in the reference's CLI."""
     print("Triangle Counting by gardenia_tpu_torch")
     print("Using DAG (static orientation)")
-    g = _load(args, symmetrize_default=True)
+    g, _ = _load(args, symmetrize_default=True)
     from gardenia_tpu_torch.solvers.tc import tc_solver
-    total, secs = time_op(lambda: tc_solver(g, device=device), device=device)
-    print(f"runtime [base] = {secs:f} sec")
+    solver_variant = "rotate" if variant == "base" else variant
+    total, secs = time_op(lambda: tc_solver(g, variant=solver_variant,
+                                            device=device), device=device)
+    print(f"runtime [{variant}] = {secs:f} sec")
     print(f"total_num_triangles = {total}")
     expect = oracles.tc_serial(g.oriented())
     return check(total == expect, f"(expected {expect})")
@@ -91,7 +109,7 @@ def run_cc(args, device, variant="sv") -> bool:
     """cc <filetype> <graph> (src/cc/main.cc): symmetrizes by default;
     Shiloach-Vishkin, as the reference CLI runs it."""
     print("Connected Components by gardenia_tpu_torch")
-    g = _load(args, symmetrize_default=True, need_reverse=True)
+    g, _ = _load(args, symmetrize_default=True, need_reverse=True)
     from gardenia_tpu_torch.solvers.cc import cc_solver
     res, secs = time_op(lambda: cc_solver(g, variant=variant, device=device),
                         device=device)
@@ -101,18 +119,93 @@ def run_cc(args, device, variant="sv") -> bool:
     return check(same_components(comp, oracles.cc_serial(g)))
 
 
-KERNELS = {"pr": run_pr, "tc": run_tc, "cc": run_cc}
+def run_bfs(args, device, variant="pull") -> bool:
+    """bfs <filetype> <prefix> [symmetrize] [reverse] [source]
+    (src/bfs/main.cc:8-19)."""
+    print("Breadth-first Search by gardenia_tpu_torch")
+    g, rest = _load(args, need_reverse=True)
+    source = int(rest[1]) if len(rest) > 1 else 0
+    from gardenia_tpu_torch.solvers.bfs import bfs_solver
+    res, secs = time_op(lambda: bfs_solver(g, source, variant=variant,
+                                           device=device), device=device)
+    print(f"\titerations = {res.iterations}.")
+    report_runtime(variant, secs)
+    print(f"GTEPS = {gteps(g.nnz, secs):.4f}")
+    expect = oracles.bfs_serial(g, source)
+    return check(bool((res.dist.cpu().numpy() == expect).all()))
+
+
+def bc_close(scores, expect) -> bool:
+    """The tolerance of the reference CLI's BC check: 1e-4 relative to
+    |a| + |b| plus 1e-4 absolute, on scores normalized to a max of 1."""
+    scores, expect = np.asarray(scores), np.asarray(expect)
+    tol = 1e-4 * (np.abs(scores) + np.abs(expect)) + 1e-4
+    return bool((np.abs(scores - expect) <= tol).all())
+
+
+def run_bc(args, device, variant="base") -> bool:
+    if variant != "base":
+        raise ValueError(f"unknown bc variant {variant!r} (only 'base')")
+    print("Betweenness Centrality by gardenia_tpu_torch")
+    g, rest = _load(args, need_reverse=True)
+    source = int(rest[1]) if len(rest) > 1 else 0
+    from gardenia_tpu_torch.solvers.bc import bc_solver
+    res, secs = time_op(lambda: bc_solver(g, source, device=device),
+                        device=device)
+    print(f"\titerations = {res.iterations}.")
+    report_runtime(variant, secs)
+    return check(bc_close(res.scores.cpu().numpy(),
+                          oracles.bc_serial(g, source)))
+
+
+KERNELS = {"pr": run_pr, "tc": run_tc, "cc": run_cc, "bfs": run_bfs,
+           "bc": run_bc}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m gardenia_tpu_torch.cli")
-    ap.add_argument("kernel", choices=sorted(KERNELS))
-    ap.add_argument("args", nargs="+",
-                    help="<filetype> <graph-prefix|scale> [symmetrize]")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ns = ap.parse_args(argv)
-    device = resolve_device(ns.device)
-    ok = KERNELS[ns.kernel](ns.args, device)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in KERNELS:
+        print("Usage: python -m gardenia_tpu_torch.cli <kernel> <filetype> "
+              "<graph-prefix|scale> [kernel args...] [--variant=NAME] "
+              f"[--device={{cuda,cpu}}]\nkernels: {' '.join(sorted(KERNELS))}")
+        return 1
+    kernel = argv[0]
+    # flags may stand anywhere among the positionals (the reference
+    # binaries are purely positional; the flags are this CLI's)
+    variant, device_name = None, "cuda"
+    rest = []
+    words = iter(argv[1:])
+    for word in words:
+        if not word.startswith("--"):
+            rest.append(word)
+        elif word.startswith("--variant="):
+            variant = word.split("=", 1)[1]
+        elif word.startswith("--device="):
+            device_name = word.split("=", 1)[1]
+        elif word == "--device":
+            device_name = next(words, "")
+        elif word.startswith("--dist"):
+            print("--dist is not ported: the port has no multi-device "
+                  "solvers yet")
+            return 1
+        else:
+            print(f"unknown flag {word!r}")
+            return 1
+    if device_name not in ("cuda", "cpu"):
+        print(f"unknown device {device_name!r} (cuda or cpu)")
+        return 1
+    if len(rest) < 2:
+        print("expected <filetype> <graph-prefix|scale> after the kernel")
+        return 1
+    device = resolve_device(device_name)
+    kw = {} if variant is None else {"variant": variant}
+    try:
+        ok = KERNELS[kernel](rest, device, **kw)
+    except ValueError as e:
+        if variant is None or "variant" not in str(e):
+            raise
+        print(e)
+        return 1
     return 0 if ok else 1
 
 

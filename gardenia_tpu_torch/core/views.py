@@ -55,6 +55,18 @@ def coo(g, device):
     return g._dev(_key("coo", device), mk)
 
 
+def coo_sorted(g, device, reverse: bool = False):
+    """(rows i32[nnz], non-decreasing; cols i32[nnz]) of g's CSR (of its
+    transpose when reverse): the edge list that ops/spmv.spmv_batched
+    sums by row."""
+    def mk():
+        rp, ci = _csr_arrays(g, reverse)
+        rows = np.repeat(np.arange(g.m, dtype=T.VID_DTYPE), np.diff(rp))
+        return (torch.from_numpy(rows).to(device),
+                torch.from_numpy(np.asarray(ci, T.VID_DTYPE)).to(device))
+    return g._dev(_key("coo_sorted", device, _dir(g, reverse)), mk)
+
+
 def ell(g, device, reverse: bool = False):
     """Unweighted ELL slab matrix of g (of its transpose when reverse)."""
     def mk():
@@ -90,8 +102,9 @@ def relabel_maps(g, device):
     return rel.graph, new_of_old, old_of_new
 
 
-def relabeled_hybrid(g, device):
-    """(relabelled graph, its reverse hybrid matrix, new_of_old tensor) —
-    the degree-relabelled layout that pull PageRank runs on."""
+def relabeled_hybrid(g, device, reverse: bool = True):
+    """(relabelled graph, its hybrid matrix, new_of_old tensor) — the
+    degree-relabelled layout that the pull sweeps run on: the reverse
+    (in-edge) matrix by default, the forward one for BC's backward pass."""
     g2, new_of_old, _ = relabel_maps(g, device)
-    return g2, hybrid(g2, device, reverse=True), new_of_old
+    return g2, hybrid(g2, device, reverse=reverse), new_of_old

@@ -28,8 +28,10 @@
 // lanes with warp shuffles.  Rows are whole in a group, so every output
 // element has one writer and no atomics are needed.  Rows that repeat
 // across slots (split rows) are summed by the caller's index_add_.
-// S > 8 re-streams the panel once per 8 columns: tensor cores for large S
-// are a later step.
+// S > 8 re-streams the panel once per 8 columns: int8 and bf16 panels go to
+// the tensor-core kernel there (dense_panel_matmul_tc.cu, routed by
+// ops/panel.py), and only f32 panels, which must stay f32-exact, take this
+// kernel at any S.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

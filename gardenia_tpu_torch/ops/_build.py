@@ -113,6 +113,10 @@ def lib() -> ctypes.CDLL:
                 vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
             so.gdn_dense_panel_matmul.restype = ci
             ll = ctypes.c_longlong
+            # (panel, panel dtype, src, x3d, x3d dtype, out, R, W, S, stream)
+            so.gdn_dense_panel_matmul_tc.argtypes = [
+                vp, ci, vp, vp, ci, vp, ll, ci, ci, vp]
+            so.gdn_dense_panel_matmul_tc.restype = ci
             # (panel, dtype, src, x2d, out, R, W, sentinel, stream)
             so.gdn_dense_panel_minselect.argtypes = [
                 vp, ci, vp, vp, vp, ll, ci, ci, vp]

@@ -17,10 +17,15 @@ bf16 panel is built in f32 and converted through torch.
 
 `spmv_hybrid` runs each panel array through kernel K1 (ops/panel.py) with
 an f32 operand and f32 accumulation, and the remainder through spmv_ell.
-The reference's hi/lo bf16 operand split and its `_small_dense` precision
-policy were MXU workarounds and are not ported.  `spmv_hybrid_min_select`
-(CC's label sweep) runs each panel array through kernel K2
-(ops/minselect.py) and the remainder through spmv_ell's min-select.
+`spmv_hybrid_batched` does the same for S operand vectors at once: K1's
+tensor-core kernel on the panels, a per-edge row gather and a segment sum
+on the remainder.  The reference's hi/lo bf16 operand split, its `exact=`
+and `use_pallas=` arguments and its `_small_dense` precision policy were
+MXU workarounds and are not ported: the operand's dtype states the
+precision (f32: f32-faithful products; bf16: one bf16 pass).
+`spmv_hybrid_min_select` (CC's label sweep) runs each panel array through
+kernel K2 (ops/minselect.py) and the remainder through spmv_ell's
+min-select.
 """
 
 from __future__ import annotations
@@ -72,6 +77,8 @@ class HybridMatrix:
     rem_src: torch.Tensor            # i32[R] remainder src
     rem_w: Optional[torch.Tensor]    # f32[R] weights, or None (unweighted)
     scale: float = 1.0
+    # i64[rows + 1] CSR offsets of rem_dst, made at the first batched apply
+    rem_offsets: Optional[torch.Tensor] = None
 
     def to(self, device) -> "HybridMatrix":
         return HybridMatrix(
@@ -291,6 +298,57 @@ def spmv_hybrid(hyb: HybridMatrix, x: torch.Tensor, *, num_rows: int,
     if hyb.scale != 1.0:       # constant-value factorization
         y = y * hyb.scale
     return y if init is None else y + init.float()
+
+
+def spmv_hybrid_batched(hyb: HybridMatrix, x2d: torch.Tensor, *,
+                        num_rows: int) -> torch.Tensor:
+    """Multi-vector plus-times SpMV over the hybrid layout: y[i, s] =
+    sum_j A[i, j] x2d[j, s], (num_rows, S) f32, for S problems in the last
+    dimension (multi-source BFS, batched Brandes BC).
+
+    One pass over the dense panels serves all S problems (K1 at the
+    batched shape); the remainder pays a per-edge gather of whole S-rows
+    through rem_src, summed by the sorted rem_dst.  x2d (n, S) is f32, or
+    bf16 where one bf16 pass is enough: a 0/1 frontier mask is exact in
+    it, and the operand's bytes halve.  Equal to ops/spmv.spmv_batched on
+    the same matrix up to f32 summation order."""
+    n, S = x2d.shape
+    mb = (num_rows + LANES - 1) // LANES
+    if x2d.dtype != torch.bfloat16:
+        x2d = x2d.float()
+    if hyb.dense:
+        qx = (n + LANES - 1) // LANES
+        if n == qx * LANES and x2d.is_contiguous():
+            x3d = x2d.view(qx, LANES, S)             # no pad rows to add
+        else:
+            x3d = x2d.new_zeros((qx * LANES, S))
+            x3d[:n] = x2d
+            x3d = x3d.view(qx, LANES, S)
+        y3d = x2d.new_zeros((mb, LANES, S), dtype=torch.float32)
+        for p in hyb.dense:
+            # split rows repeat in p.rows: index_add_ sums their slots
+            y3d.index_add_(0, p.rows,
+                           _panel.dense_panel_matmul(p.panel, p.src, x3d, S))
+        y = y3d.view(-1, S)[:num_rows]
+    else:
+        y = x2d.new_zeros((num_rows, S), dtype=torch.float32)
+    if hyb.rem_dst.shape[0]:
+        y = y + batched_remainder(hyb, x2d, num_rows)
+    if hyb.scale != 1.0:       # constant-value factorization
+        y = y * hyb.scale
+    return y
+
+
+def batched_remainder(hyb: HybridMatrix, x2d: torch.Tensor,
+                      num_rows: int) -> torch.Tensor:
+    """The remainder's share of spmv_hybrid_batched, (num_rows, S) f32: a
+    gather of whole S-rows through rem_src (times rem_w where present),
+    summed over the sorted rem_dst as ops/spmv.spmv_batched does."""
+    from gardenia_tpu_torch.ops.spmv import row_offsets, spmv_batched
+    if hyb.rem_offsets is None or hyb.rem_offsets.shape[0] != num_rows + 1:
+        hyb.rem_offsets = row_offsets(hyb.rem_dst, num_rows)
+    return spmv_batched(hyb.rem_dst, hyb.rem_src, x2d, num_rows=num_rows,
+                        offsets=hyb.rem_offsets, vals=hyb.rem_w)
 
 
 def spmv_hybrid_min_select(hyb: HybridMatrix, x: torch.Tensor, *,

@@ -1,14 +1,26 @@
 """Dense-panel matmul of the hybrid layout — counterpart of
 gardenia_tpu/ops/pallas_bsr.py::dense_panel_matmul.
 
-`dense_panel_matmul` launches kernel K1 (csrc/dense_panel_matmul.cu) on
-CUDA tensors and takes `dense_panel_matmul_plain` on CPU tensors, and only
-there: on a CUDA tensor it launches the kernel or raises.  Unlike the TPU
-kernel it takes the operand-block table `src` and the padded operand
-`x3d` and gathers x3d[src] itself, and it has no hi/lo operand split.
+`dense_panel_matmul` launches kernel K1 on CUDA tensors and takes
+`dense_panel_matmul_plain` on CPU tensors, and only there: on a CUDA
+tensor it launches a kernel or raises.  Unlike the TPU kernel it takes the
+operand-block table `src` and the padded operand `x3d` and gathers
+x3d[src] itself, and it has no hi/lo operand split argument.
 
-LAUNCHES counts the kernel's launches (never the plain version's), so a
-run can show that its main path went through K1.
+K1 has two routes, chosen by the shapes and types alone:
+  'simt' — csrc/dense_panel_matmul.cu, CUDA cores, f32 operand, every
+           panel type: S <= 8 (PageRank, SpMV, the BFS count sweep), and
+           f32 panels at any S (weighted graphs stay f32-exact).
+  'tc'   — csrc/dense_panel_matmul_tc.cu, tensor cores (mma.sync, bf16
+           x bf16 -> f32), int8 and bf16 panels: S > 8 (multi-source BFS,
+           batched BC), and a bf16 operand at any S.
+Precision is the operand's dtype: a bf16 operand takes one product (a 0/1
+mask is exact), an f32 operand is split into three bf16 terms inside the
+kernel, which carry f32's 24 mantissa bits.
+
+LAUNCHES counts the kernels' launches by route (never the plain
+version's), so a run can show that its main path went through K1 and by
+which kernel.
 """
 
 from __future__ import annotations
@@ -16,17 +28,28 @@ from __future__ import annotations
 import torch
 
 LANES = 128
-LAUNCHES = 0
+LAUNCHES = {"simt": 0, "tc": 0}
+SIMT_MAX_S = 8          # the CUDA-core kernel reads the panel once up to here
 
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
 def dense_panel_matmul_plain(panel: torch.Tensor, src: torch.Tensor,
                              x3d: torch.Tensor, S: int) -> torch.Tensor:
-    """(R, 128, S) f32 = panel[r] @ x3d[src[r]] per row slot, in torch ops."""
+    """(R, 128, S) f32 = panel[r] @ x3d[src[r]] per row slot, in torch ops
+    (f32 products of the cells and the operand as given, f32 or bf16)."""
     R, W = src.shape
-    xg = x3d[src].reshape(R, W * LANES, S)
+    xg = x3d[src].reshape(R, W * LANES, S).float()
     return torch.einsum("riw,rwk->rik", panel.float(), xg)
+
+
+def kernel_route(panel_dtype, x_dtype, S: int) -> str:
+    """Which of K1's kernels takes these types at S operand columns."""
+    if panel_dtype == torch.float32:
+        return "simt"
+    if S > SIMT_MAX_S or x_dtype == torch.bfloat16:
+        return "tc"
+    return "simt"
 
 
 def _check(panel, src, x3d, S):
@@ -35,8 +58,8 @@ def _check(panel, src, x3d, S):
                         f"{sorted(map(str, _DTYPE_CODE))}")
     if src.dtype != torch.int32:
         raise TypeError(f"src must be int32, got {src.dtype}")
-    if x3d.dtype != torch.float32:
-        raise TypeError(f"x3d must be float32, got {x3d.dtype}")
+    if x3d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x3d must be float32 or bfloat16, got {x3d.dtype}")
     if src.dim() != 2 or panel.dim() != 3 or x3d.dim() != 3:
         raise ValueError("expected panel (R,128,W*128), src (R,W), "
                          "x3d (qx,128,S)")
@@ -57,9 +80,8 @@ def dense_panel_matmul(panel: torch.Tensor, src: torch.Tensor,
 
     panel: (R, 128, W*128) int8 | bfloat16 | float32, zero-padded slots.
     src:   (R, W) int32 operand block ids into x3d.
-    x3d:   (qx, 128, S) float32 operand blocks.
+    x3d:   (qx, 128, S) float32 | bfloat16 operand blocks.
     """
-    global LAUNCHES
     _check(panel, src, x3d, S)
     if panel.device.type == "cpu":
         return dense_panel_matmul_plain(panel, src, x3d, S)
@@ -70,6 +92,9 @@ def dense_panel_matmul(panel: torch.Tensor, src: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if panel.data_ptr() % 16:
         raise ValueError("panel must be 16-byte aligned")
+    route = kernel_route(panel.dtype, x3d.dtype, S)
+    if route == "simt" and x3d.dtype != torch.float32:
+        x3d = x3d.float()            # exact; f32 panels keep f32 products
     from gardenia_tpu_torch.ops import _build
 
     R, W = src.shape
@@ -79,9 +104,15 @@ def dense_panel_matmul(panel: torch.Tensor, src: torch.Tensor,
     so = _build.lib()
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = so.gdn_dense_panel_matmul(
-            panel.data_ptr(), _DTYPE_CODE[panel.dtype], src.data_ptr(),
-            x3d.data_ptr(), out.data_ptr(), R, W, S, stream)
-    _build.check(code, "dense_panel_matmul")
-    LAUNCHES += 1
+        if route == "tc":
+            code = so.gdn_dense_panel_matmul_tc(
+                panel.data_ptr(), _DTYPE_CODE[panel.dtype], src.data_ptr(),
+                x3d.data_ptr(), _DTYPE_CODE[x3d.dtype], out.data_ptr(), R, W,
+                S, stream)
+        else:
+            code = so.gdn_dense_panel_matmul(
+                panel.data_ptr(), _DTYPE_CODE[panel.dtype], src.data_ptr(),
+                x3d.data_ptr(), out.data_ptr(), R, W, S, stream)
+    _build.check(code, f"dense_panel_matmul ({route})")
+    LAUNCHES[route] += 1
     return out

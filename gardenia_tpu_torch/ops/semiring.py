@@ -38,7 +38,7 @@ class Semiring:
 
     def reduce(self, arr: torch.Tensor, dim: int) -> torch.Tensor:
         if self.scatter == "add":
-            return arr.sum(dim=dim)
+            return arr.sum(dim=dim, dtype=arr.dtype)   # int32 stays int32
         if self.scatter == "min":
             return arr.amin(dim=dim)
         if self.scatter == "max":

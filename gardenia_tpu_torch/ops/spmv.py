@@ -1,5 +1,6 @@
-"""Generalized SpMV over the ELL slab layout (torch counterpart of
-gardenia_tpu/ops/spmv.py::spmv_ell).
+"""Generalized SpMV (torch counterpart of gardenia_tpu/ops/spmv.py):
+`spmv_ell` over the ELL slab layout, `spmv_segment` over COO edges (the
+push direction), `spmv_batched` for S operand vectors at once.
 
 Plain torch: per slab, gather x along the (W, R) column tile with a pad
 slot at index n, combine with the semiring, reduce across W, and scatter
@@ -53,3 +54,55 @@ def spmv_ell(ell: EllMatrix,
             partial = torch.where(keep, partial, zero)
         semiring.scatter_(y, rows, partial)
     return y[:num_rows]
+
+
+def row_offsets(row_ids_sorted: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """i64[num_rows + 1] CSR offsets of a non-decreasing row-id list."""
+    ids = torch.arange(num_rows + 1, dtype=row_ids_sorted.dtype,
+                       device=row_ids_sorted.device)
+    return torch.searchsorted(row_ids_sorted, ids)
+
+
+def spmv_batched(row_ids_sorted: torch.Tensor, col_ids: torch.Tensor,
+                 x2d: torch.Tensor, *, num_rows: int,
+                 offsets: Optional[torch.Tensor] = None,
+                 vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-vector plus-times SpMV: y[i, :] = sum_j A[i,j] x2d[j, :], f32.
+
+    x2d: (n, S) operand, S problems in the last dimension; the per-edge
+    gather fetches whole S-rows.  row_ids_sorted: i32[nnz] destination row
+    per edge, non-decreasing (CSR order); col_ids: i32[nnz] operand row;
+    offsets: row_offsets(row_ids_sorted, num_rows) where the caller keeps
+    them; vals: f32[nnz] edge weights, all ones where absent.
+
+    The rows are sorted, so the segment sum is `torch.segment_reduce`
+    over the CSR offsets: no atomics, the same sum in every run.  On an
+    NVIDIA H100 at R-MAT-20 and S = 128 it took 6.5 ms where `index_add_`
+    took 11.4 (7.4M gathered rows of 512 bytes; chip_smoke.py times both).
+    """
+    if offsets is None:
+        offsets = row_offsets(row_ids_sorted, num_rows)
+    gathered = x2d.float()[col_ids]
+    if vals is not None:
+        gathered = gathered * vals[:, None]
+    return torch.segment_reduce(gathered, "sum", offsets=offsets, axis=0)
+
+
+def spmv_segment(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                 vals: Optional[torch.Tensor], x: torch.Tensor, *,
+                 semiring: Semiring = F32_PLUS_TIMES, num_rows: int,
+                 init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """COO-form generalized SpMV: scatter-combine per edge.  Also the
+    push-direction primitive (reference push variants, e.g.
+    src/pr/push.cu): call with (row_ids=dst, col_ids=src).  Column ids
+    outside [0, len(x)) read the semiring's pad value and row ids outside
+    [0, num_rows) are dropped, as in JAX."""
+    dt = semiring.dtype
+    x_ext = torch.cat([x.to(dt), x.new_full((1,), semiring.pad_x, dtype=dt)])
+    gathered = x_ext[drop_index(col_ids, x.shape[0])]
+    prod = gathered if vals is None else semiring.mul(vals.to(dt), gathered)
+    if init is None:
+        y = x.new_full((num_rows,), semiring.zero, dtype=dt)
+    else:
+        y = init.to(dt)
+    return semiring.scatter_into(y, row_ids, prod)

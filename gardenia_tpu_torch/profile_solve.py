@@ -1,12 +1,15 @@
 """Where a solve's device time goes, by torch.profiler on a CUDA card.
 
-    python -m gardenia_tpu_torch.profile_solve [--kernel {pr,tc,cc}]
+    python -m gardenia_tpu_torch.profile_solve
+        [--kernel {pr,tc,cc,bfs,msbfs,bc}]
         [--graph {rmat,uniform}] [--scale 20] [--solves 3]
         [--trace chiprun_out/trace.json]
 
 On the bench's graph (bench.get_graph; `--graph uniform`: the uniform
 random graph of the same scale and degree, on which cc_sv takes a dense
-round), with the bench's solver (cc: cc_sv): one untraced solve that
+round), with the bench's solver (cc: cc_sv; bfs: bfs_do_fused from the
+vertex of highest degree; msbfs and bc: sources 0..127): one untraced
+solve that
 builds and uploads (layout or TC prep), then `--solves` untraced solves
 timed on the host clock after cuda.synchronize, then `--solves` solves
 under torch.profiler.  It prints nvidia-smi's name and power limit, the
@@ -23,17 +26,31 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import torch
 
 
-def solver(kernel: str):
+def solver(kernel: str, g):
+    """fn(g, device=) running the bench's solve of `kernel` on g."""
+    import numpy as np
     if kernel == "pr":
         from gardenia_tpu_torch.solvers.pr import pr_solver
         return pr_solver
     if kernel == "cc":
         from gardenia_tpu_torch.solvers.cc import cc_sv
         return cc_sv
+    if kernel == "bfs":
+        from gardenia_tpu_torch.solvers.bfs import bfs_do_fused
+        return partial(bfs_do_fused, source=int(np.argmax(g.degrees)))
+    if kernel == "msbfs":
+        from gardenia_tpu_torch.bench import SOURCES
+        from gardenia_tpu_torch.solvers.bfs import bfs_multi_source
+        return partial(bfs_multi_source, sources=np.arange(SOURCES))
+    if kernel == "bc":
+        from gardenia_tpu_torch.bench import SOURCES
+        from gardenia_tpu_torch.solvers.bc import bc_batched
+        return partial(bc_batched, sources=np.arange(SOURCES))
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
 
@@ -41,7 +58,8 @@ def solver(kernel: str):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m gardenia_tpu_torch."
                                       "profile_solve")
-    ap.add_argument("--kernel", default="tc", choices=["pr", "tc", "cc"])
+    ap.add_argument("--kernel", default="tc",
+                    choices=["pr", "tc", "cc", "bfs", "msbfs", "bc"])
     ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)
@@ -57,10 +75,10 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    solve = solver(args.kernel)
     g = (get_graph(args.scale) if args.graph == "rmat" else
          generate_graph("uniform", scale=args.scale, degree=16,
                         symmetrize=True))
+    solve = solver(args.kernel, g)
     t0 = time.perf_counter()
     solve(g, device=dev)
     torch.cuda.synchronize()

@@ -19,12 +19,19 @@ cc_sv layouts for the dense round's label sweep:
              until the end.
   'ell'    — ELL slabs over the original ids.
   'auto'   — hybrid (the reference's production layout, cc.py:64-73).
+The layout's matrices are built and uploaded at the first dense round, not
+at the first solve: no R-MAT solve takes a dense round, and building and
+uploading the hybrid layout's 4 GB of panels at R-MAT-20 took 15 of the
+first solve's 31 seconds (the relabelling is the rest).  What the 'hybrid'
+layout always gives is the degree-relabelled id space, in which an
+R-MAT-20 solve takes one round where the original ids ('ell') take two
+(the card's times are in PERF.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +84,10 @@ def _frequent_label(comp: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
 class _SVContext:
     """Device buffers and host constants of cc_sv on one graph."""
     layout: str
-    mats: list                      # hybrid or ELL matrices, one per dir
+    # hybrid or ELL matrices, one per direction: None until the first
+    # dense round asks for them (build_mats)
+    mats: Optional[list]
+    build_mats: Callable[[], list]
     dirs: List[Tuple[torch.Tensor, torch.Tensor]]   # CSR per direction
     deg_all: torch.Tensor           # i32[m] degree summed over dirs
     parts01: Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -91,14 +101,16 @@ class _SVContext:
 def _sv_context(g, layout: str, dev) -> _SVContext:
     if layout == "hybrid":
         gsrc, new_of_old, old_of_new = views.relabel_maps(g, dev)
-        mats = [views.hybrid(gsrc, dev)]
-        if not g.symmetric:
-            mats.append(views.hybrid(gsrc, dev, reverse=True))
+        view = views.hybrid
     else:
         gsrc, new_of_old, old_of_new = g, None, None
-        mats = [views.ell(g, dev)]
+        view = views.ell
+
+    def build_mats():
+        mats = [view(gsrc, dev)]
         if not g.symmetric:
-            mats.append(views.ell(g, dev, reverse=True))
+            mats.append(view(gsrc, dev, reverse=True))
+        return mats
     m, nnz = g.m, gsrc.nnz
     dirs = [views.csr(gsrc, dev)]
     deg_all = views.degrees(gsrc, dev)
@@ -125,13 +137,15 @@ def _sv_context(g, layout: str, dev) -> _SVContext:
                                                              nnz - 1)],
                                       vid).astype(np.int32)).to(dev)
             for r in range(2))
-    return _SVContext(layout, mats, dirs, deg_all, parts01, new_of_old,
-                      old_of_new, _sample_idx(m, dev), tiers, nnz)
+    return _SVContext(layout, None, build_mats, dirs, deg_all, parts01,
+                      new_of_old, old_of_new, _sample_idx(m, dev), tiers, nnz)
 
 
 def _sweep(ctx: _SVContext, comp: torch.Tensor, m: int) -> torch.Tensor:
     """Each vertex's minimum neighbour label (SENT without neighbours),
     over every direction."""
+    if ctx.mats is None:
+        ctx.mats = ctx.build_mats()
     nbr = None
     for mat in ctx.mats:
         if ctx.layout == "hybrid":

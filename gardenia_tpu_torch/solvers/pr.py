@@ -1,6 +1,14 @@
-"""PageRank — pull-direction power iteration, damping 0.85, L1 tolerance
-1e-4, max 100 iterations (reference src/pr/{pr.h,omp_base.cc,base.cu});
-torch counterpart of gardenia_tpu/solvers/pr.py.
+"""PageRank — power iteration, damping 0.85, L1 tolerance 1e-4, max 100
+iterations (reference src/pr/{pr.h,omp_base.cc,base.cu}); torch
+counterpart of gardenia_tpu/solvers/pr.py.
+
+Variants:
+  'pull'  — gather over in-edges (the layouts below).
+  'push'  — scatter-add over out-edges in COO order (ops/spmv.
+            spmv_segment; reference src/pr/push.cu); no layout.
+  'delta' — residual propagation (reference src/pr/delta.cu): only the
+            vertices whose |delta| exceeds EPSILON2 * score propagate;
+            over the pull layouts.
 
 The JAX solver runs the loop on the device under lax.while_loop.  Here the
 loop runs on the host and reads the L1 error back once per iteration, as
@@ -8,7 +16,7 @@ the reference's base.cu does; each iteration is contrib = scores /
 out_degree, incoming = SpMV over the transposed graph, scores' = base +
 kDamp * incoming.
 
-Layouts (pull):
+Layouts (pull and delta):
   'hybrid' — degree-relabelled hybrid block-sparse (ops/bsr.py): dense
              panels through kernel K1 plus an ELL remainder.  Scores map
              back to the original ids.
@@ -28,6 +36,7 @@ from gardenia_tpu_torch import resolve_device
 
 KDAMP = 0.85          # reference src/pr/pr.h:6
 EPSILON = 1e-4        # reference src/pr/pr.h:5
+EPSILON2 = 1e-3       # reference src/pr/pr.h:8 (delta activity threshold)
 MAX_ITER = 100        # reference src/pr/pr.h:12
 
 
@@ -62,18 +71,49 @@ def _pr_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
     return scores, it, errs
 
 
+def _pr_delta_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
+                   max_iter: int):
+    """(scores, iterations, errors) of residual-propagation PageRank
+    (reference delta.cu:100-123, omp_delta.cc:59-101): deltas start at
+    1/m, each round the active vertices push delta / degree, deltas' =
+    kDamp * sums (plus the one-time base-score correction in round 0),
+    scores accumulate the deltas, and a vertex stays active while |delta|
+    > EPSILON2 * score.  err = sum |deltas|."""
+    init_score = float(np.float32(1.0 / m))
+    base = float(np.float32((1.0 - KDAMP) / m))
+    kd = float(np.float32(KDAMP))
+    eps2 = float(np.float32(EPSILON2))
+    epsilon = float(np.float32(epsilon))
+    safe_deg = out_deg.float().clamp(min=1.0)
+    has_out = out_deg > 0
+    scores = torch.full((m,), init_score, dtype=torch.float32,
+                        device=out_deg.device)
+    deltas = scores.clone()
+    errs = torch.full((max_iter,), float("inf"), dtype=torch.float32)
+    it, err = 0, float("inf")
+    while it < max_iter and err >= epsilon:
+        active = deltas.abs() > eps2 * scores
+        contrib = torch.where(active & has_out, deltas / safe_deg, 0.0)
+        sums = spmv_fn(contrib)
+        deltas = kd * sums
+        if it == 0:
+            deltas = base + deltas - init_score
+        scores = scores + deltas
+        err = float(deltas.abs().sum())      # the iteration's one read
+        errs[it] = err
+        it += 1
+    return scores, it, errs
+
+
 def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
               variant: str = "pull", layout: str = "auto",
               device="cuda") -> PRResult:
     """PageRank scores for all vertices of g on `device`.
 
-    g is the host Graph (gardenia_tpu_torch.core.graph); the pull variant
-    sweeps its reverse (in-edge) view.
+    g is the host Graph (gardenia_tpu_torch.core.graph); the pull and
+    delta variants sweep its reverse (in-edge) view, push its COO edges.
     """
-    if variant in ("push", "delta"):
-        raise NotImplementedError(
-            f"PR variant {variant!r} is not ported yet (ROADMAP A3)")
-    if variant != "pull":
+    if variant not in ("pull", "push", "delta"):
         raise ValueError(f"unknown PR variant {variant!r}")
     if layout == "auto":
         layout = "hybrid"
@@ -81,19 +121,27 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
     m = g.m
     from gardenia_tpu_torch.core import views
     from gardenia_tpu_torch.ops.semiring import F32_PLUS_TIMES
+    loop = _pr_delta_loop if variant == "delta" else _pr_loop
+    if variant == "push":
+        from gardenia_tpu_torch.ops.spmv import spmv_segment
+        src, dst = views.coo(g, dev)
+        spmv_fn = partial(spmv_segment, dst, src, None,
+                          semiring=F32_PLUS_TIMES, num_rows=m)
+        return PRResult(*loop(spmv_fn, views.degrees(g, dev), m, epsilon,
+                              max_iter))
     if layout == "hybrid":
         from gardenia_tpu_torch.ops.bsr import spmv_hybrid
         g2, hyb, new_of_old = views.relabeled_hybrid(g, dev)
         spmv_fn = partial(spmv_hybrid, hyb, num_rows=m)
-        scores, it, errs = _pr_loop(spmv_fn, views.degrees(g2, dev), m,
-                                    epsilon, max_iter)
+        scores, it, errs = loop(spmv_fn, views.degrees(g2, dev), m, epsilon,
+                                max_iter)
         return PRResult(scores[new_of_old], it, errs)
     if layout == "ell":
         from gardenia_tpu_torch.ops.spmv import spmv_ell
         spmv_fn = partial(spmv_ell, views.ell(g, dev, reverse=True),
                           semiring=F32_PLUS_TIMES, num_rows=m)
-        scores, it, errs = _pr_loop(spmv_fn, views.degrees(g, dev), m,
-                                    epsilon, max_iter)
+        scores, it, errs = loop(spmv_fn, views.degrees(g, dev), m, epsilon,
+                                max_iter)
         return PRResult(scores, it, errs)
     raise ValueError(f"unknown PR layout {layout!r}")
 

@@ -321,3 +321,23 @@ def test_cc_edge_cases():
         tcc.cc_sv(tg, layout="csr", device="cpu")
     with pytest.raises(ValueError):
         tcc.cc_solver(tg, variant="nope", device="cpu")
+
+
+def test_cc_sv_builds_the_hybrid_layout_only_for_a_dense_round():
+    """The hybrid layout's panels are set-up that no R-MAT solve uses: the
+    solve runs in the relabelled id space without them, and the first
+    dense round (uniform graphs take one) builds them."""
+    from gardenia_tpu_torch.core import views
+
+    def built(tg):
+        g2 = views.relabel_maps(tg, "cpu")[0]
+        return views._key("hybrid", "cpu", views._dir(g2, False)) \
+            in g2._device_cache
+
+    rmat = from_csr_of(generate_graph("rmat", scale=10, symmetrize=True))
+    t = tcc.cc_sv(rmat, layout="hybrid", device="cpu")
+    assert same_components(t.comp.numpy(), oracles.cc_serial(rmat))
+    assert not built(rmat)
+    uni = from_csr_of(generate_graph("uniform", scale=14))
+    tcc.cc_sv(uni, device="cpu")
+    assert built(uni)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,6 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(gardenia_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"gardenia_tpu_torch.cli", "gardenia_tpu_torch.solvers.cc",
+        "gardenia_tpu_torch.solvers.bfs", "gardenia_tpu_torch.solvers.bc",
         "gardenia_tpu_torch.core.graph", "gardenia_tpu_torch.native",
         "gardenia_tpu_torch.verify.oracles"} <= set(names), names
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
@@ -148,3 +150,101 @@ def test_bench_cc_cpu_prints_one_json_line():
         1.0 / (rec["value"] / (d["nnz"] / 1e6))
     assert d["m"] == 1024 and d["rounds"] >= 1 and d["device"] == "cpu"
     assert d["k2_launches"] == 0                 # CPU: plain version only
+
+
+# --- the CLI's flags, anywhere among the positionals ------------------------
+
+def _cli(*words):
+    proc = _run(["-m", "gardenia_tpu_torch.cli", *words])
+    return proc, proc.stdout.splitlines()
+
+
+@pytest.mark.parametrize("words", [
+    ("cc", "--variant=afforest", "--device=cpu", "rmat", "10"),
+    ("cc", "rmat", "10", "--device=cpu", "--variant=afforest"),
+    ("cc", "rmat", "--variant=afforest", "10", "--device", "cpu")])
+def test_cli_flags_anywhere_among_the_positionals(words):
+    proc, lines = _cli(*words)
+    assert proc.returncode == 0, proc.stderr
+    assert lines[0] == "Connected Components by gardenia_tpu_torch"
+    assert lines[1].startswith("|V| 1024 |E| ")
+    assert lines[2].startswith("\truntime [afforest] = ")
+    assert lines[-1] == "Correct"
+
+
+@pytest.mark.parametrize("words,variant", [
+    (("pr", "rmat", "10", "--variant=push"), "push"),
+    (("pr", "rmat", "10", "1", "--variant=delta"), "delta"),
+    (("tc", "--variant=bsearch", "rmat", "10"), "bsearch"),
+    (("bfs", "rmat", "10", "1", "0", "5", "--variant=do_fused"), "do_fused"),
+    (("bfs", "rmat", "10"), "pull"),
+    (("bc", "rmat", "10"), "base")])
+def test_cli_variants_and_new_kernels(words, variant):
+    """Every kernel prints `runtime [<variant>]` with the variant that ran
+    and ends Correct; bfs and bc print their iterations line.  (pr delta
+    runs on the symmetrized graph: on the directed one both packages'
+    residual check prints Wrong, the variant being approximate.)"""
+    proc, lines = _cli(*words, "--device=cpu")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert any(f"runtime [{variant}] = " in ln for ln in lines), lines
+    assert lines[-1] == "Correct"
+    if words[0] in ("bfs", "bc"):
+        assert any(ln.startswith("\titerations = ") and ln.endswith(".")
+                   for ln in lines)
+    if words[0] in ("bfs", "pr"):
+        assert any(ln.startswith("GTEPS = ") for ln in lines)
+
+
+def test_cli_bfs_source_is_the_fifth_positional():
+    """bfs <filetype> <scale> [symmetrize] [reverse] [source]: another
+    source, another depth count, both Correct against the serial oracle."""
+    from gardenia_tpu.core.generate import generate_graph
+    from gardenia_tpu.solvers.bfs import bfs_solver
+    g = generate_graph("rmat", scale=10, symmetrize=True, need_reverse=True)
+    for source in (5, 338):
+        proc, lines = _cli("bfs", "rmat", "10", "1", "0", str(source),
+                           "--device=cpu", "--variant=do_fused")
+        assert proc.returncode == 0, proc.stderr
+        want = int(bfs_solver(g, source, variant="do_fused").iterations)
+        assert f"\titerations = {want}." in lines
+        assert lines[-1] == "Correct"
+
+
+@pytest.mark.parametrize("words,message", [
+    (("cc", "rmat", "10", "--bogus=1"), "unknown flag '--bogus=1'"),
+    (("cc", "rmat", "10", "--dist=4"), "--dist is not ported"),
+    (("cc", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown CC variant 'nope'"),
+    (("bc", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown bc variant 'nope'"),
+    (("cc", "rmat", "10", "--device=tpu"), "unknown device 'tpu'"),
+    (("nope", "rmat", "10"), "Usage: python -m gardenia_tpu_torch.cli")])
+def test_cli_refuses_what_it_does_not_know(words, message):
+    proc, lines = _cli(*words)
+    assert proc.returncode == 1
+    assert any(message in ln for ln in lines), proc.stdout
+    assert "Correct" not in lines
+
+
+@pytest.mark.parametrize("kernel,metric,unit_per", [
+    ("bfs", "bfs_dofused_gteps_rmat10", 1),
+    ("msbfs", "msbfs128_gteps_rmat10", 128),
+    ("bc", "bc_batched128_gteps_rmat10", 256)])
+def test_bench_bfs_msbfs_bc_cpu_print_one_json_line(kernel, metric, unit_per):
+    proc = _run(["-m", "gardenia_tpu_torch.bench", "--kernel", kernel,
+                 "--scale", "10", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    assert rec["metric"] == metric and rec["unit"] == "GTEPS"
+    # the reference's formulas: edges (x sources, x 2 for Brandes) / time
+    assert abs(rec["value"] - d["nnz"] * unit_per / d["ms"] / 1e6) \
+        < 1e-9 * rec["value"]
+    assert rec["vs_baseline"] == rec["value"] / (5.0 if kernel == "bc"
+                                                 else 30.0)
+    assert d["m"] == 1024 and d["levels"] >= 2 and d["device"] == "cpu"
+    assert d["k1_launches"] == 0 == d["k1_tc_launches"]   # CPU: plain only
+    if kernel != "bfs":
+        assert d["sources"] == 128

@@ -254,9 +254,8 @@ def test_panel_wrapper_cpu_plain_and_checks():
                           dense_threshold=4)
     p = t.dense[0]
     x3d = torch.rand((3, 128, 1), generator=torch.Generator().manual_seed(0))
-    before = tpanel.LAUNCHES
     y = tpanel.dense_panel_matmul(p.panel, p.src, x3d, 1)
-    assert tpanel.LAUNCHES == before == 0
+    assert not any(tpanel.LAUNCHES.values())
     torch.testing.assert_close(
         y, tpanel.dense_panel_matmul_plain(p.panel, p.src, x3d, 1))
     with pytest.raises(TypeError):
@@ -276,3 +275,174 @@ def test_resolve_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         gardenia_tpu_torch.resolve_device("cuda")
     assert gardenia_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+# --- the batched path: spmv_segment, spmv_batched, spmv_hybrid_batched ----
+
+def _directed10():
+    return generate_graph("rmat", scale=10, degree=8, symmetrize=False,
+                          need_reverse=True)
+
+
+@pytest.mark.parametrize("sr_name,with_vals,with_init", [
+    ("F32_PLUS_TIMES", False, False), ("F32_PLUS_TIMES", True, True),
+    ("I32_MIN_SELECT2", False, True), ("I32_PLUS_TIMES", False, False)])
+def test_spmv_segment_matches_jax(sr_name, with_vals, with_init):
+    """COO scatter-combine against the JAX function, with row ids outside
+    [0, m) (dropped by both) and column ids at n (the pad value).  f32
+    sums within 1e-5 of max|y| (different summation orders); integer
+    semirings exact."""
+    from gardenia_tpu.ops.spmv import spmv_segment as jsegment
+    from gardenia_tpu_torch.ops.spmv import spmv_segment as tsegment
+    g = _directed10()
+    rng = np.random.default_rng(3)
+    rows = np.repeat(np.arange(g.m, dtype=np.int32), np.diff(g.rowptr))
+    cols = np.asarray(g.colidx, np.int32).copy()
+    rows[::97] = g.m + 5                       # out of range: dropped
+    cols[::89] = g.n                           # the pad slot
+    perm = rng.permutation(len(rows))          # COO order is free
+    rows, cols = rows[perm], cols[perm]
+    sr_t, sr_j = getattr(tsr, sr_name), getattr(jsr, sr_name)
+    integer = sr_t.dtype == torch.int32
+    x = (rng.integers(0, 1000, g.n).astype(np.int32) if integer
+         else rng.random(g.n).astype(np.float32))
+    vals = rng.random(len(rows)).astype(np.float32) if with_vals else None
+    init = x[::-1].copy()[:g.m] if with_init else None
+    y_t = tsegment(torch.from_numpy(rows), torch.from_numpy(cols),
+                   None if vals is None else torch.from_numpy(vals),
+                   torch.from_numpy(x), semiring=sr_t, num_rows=g.m,
+                   init=None if init is None else torch.from_numpy(init))
+    y_j = np.asarray(jsegment(
+        jnp.asarray(rows), jnp.asarray(cols),
+        None if vals is None else jnp.asarray(vals), jnp.asarray(x),
+        semiring=sr_j, num_rows=g.m,
+        init=None if init is None else jnp.asarray(init)))
+    assert y_t.shape == (g.m,) and y_t.dtype == sr_t.dtype
+    if integer:
+        np.testing.assert_array_equal(y_t.numpy(), y_j)
+    else:
+        assert np.abs(y_t.numpy() - y_j).max() / np.abs(y_j).max() < 1e-5
+
+
+@pytest.mark.parametrize("S", [1, 3, 16, 128])
+def test_spmv_batched_matches_jax(S):
+    """The sorted segment sum against jax.ops.segment_sum: within 1e-5 of
+    max|y| (f32, different summation orders), empty rows zero."""
+    from gardenia_tpu.ops.spmv import spmv_batched as jbatched
+    from gardenia_tpu_torch.ops.spmv import row_offsets, spmv_batched
+    g = _directed10()
+    rows = np.repeat(np.arange(g.m, dtype=np.int32), np.diff(g.rowptr))
+    cols = np.asarray(g.colidx, np.int32)
+    x = np.random.default_rng(S).random((g.n, S)).astype(np.float32)
+    y_t = spmv_batched(torch.from_numpy(rows), torch.from_numpy(cols),
+                       torch.from_numpy(x), num_rows=g.m)
+    y_j = np.asarray(jbatched(jnp.asarray(rows), jnp.asarray(cols),
+                              jnp.asarray(x), num_rows=g.m))
+    assert y_t.shape == (g.m, S) and y_t.dtype == torch.float32
+    assert np.abs(y_t.numpy() - y_j).max() / np.abs(y_j).max() < 1e-5
+    empty = np.diff(g.rowptr) == 0
+    assert empty.any() and not y_t.numpy()[empty].any()
+    off = row_offsets(torch.from_numpy(rows), g.m)
+    np.testing.assert_array_equal(off.numpy(), g.rowptr)
+    y_o = spmv_batched(torch.from_numpy(rows), torch.from_numpy(cols),
+                       torch.from_numpy(x), num_rows=g.m, offsets=off)
+    assert torch.equal(y_o, y_t)
+
+
+def _batched_case(kind):
+    """(graph, weights or None, dense threshold)."""
+    if kind == "rmat12":
+        return _rmat12(), None, 16
+    if kind == "directed10":
+        return _directed10(), None, 100
+    if kind == "scaled":                          # scale-factored layout
+        g = random_graph(m=300, avg_deg=8, seed=11, symmetric=True)
+        return g, np.full(g.nnz, 0.25, np.float32), 4
+    # about 125 edges a block: some blocks dense, some in the weighted
+    # remainder
+    g = _weighted(kind, m=1500, avg_deg=6)
+    return g, g.weights, 125
+
+
+@pytest.mark.parametrize("S", [1, 3, 16, 128])
+@pytest.mark.parametrize("kind", ["rmat12", "directed10", "scaled", "f32",
+                                  "bf16"])
+def test_spmv_hybrid_batched_matches_jax(kind, S):
+    """An f32 operand within 1e-5 of max|y| of the JAX function with
+    exact=True (its hi/lo split carries 2^-16; the port's CPU path is
+    f32), of the panel-free spmv_batched and of the serial oracle column
+    by column; a 0/1 bf16 mask exactly equal to the JAX function with
+    exact=False (integer counts)."""
+    from gardenia_tpu_torch.ops.spmv import spmv_batched
+    g, w, thr = _batched_case(kind)
+    t, j = _build_both(g, thr, w)
+    assert t.dense and (kind == "scaled" or t.rem_dst.numel())
+    assert (t.rem_w is not None) == (kind in ("f32", "bf16"))
+    rng = np.random.default_rng(S)
+    x = rng.random((g.n, S)).astype(np.float32)
+    y_t = tbsr.spmv_hybrid_batched(t, torch.from_numpy(x), num_rows=g.m)
+    assert y_t.shape == (g.m, S) and y_t.dtype == torch.float32
+    y_j = np.asarray(jbsr.spmv_hybrid_batched(
+        j, jnp.asarray(x), num_rows=g.m, exact=True, use_pallas=False))
+    scale = float(np.abs(y_j).max())
+    assert np.abs(y_t.numpy() - y_j).max() / scale < 1e-5
+    Ax = np.ones(g.nnz, np.float32) if w is None else w
+    for s in {0, S - 1}:
+        y_o = oracles.spmv_serial(g, Ax, x[:, s])
+        assert np.abs(y_t.numpy()[:, s] - y_o).max() / scale < 1e-5
+    if w is None:
+        rows = np.repeat(np.arange(g.m, dtype=np.int32), np.diff(g.rowptr))
+        y_b = spmv_batched(torch.from_numpy(rows),
+                           torch.from_numpy(np.asarray(g.colidx, np.int32)),
+                           torch.from_numpy(x), num_rows=g.m)
+        assert (y_t - y_b).abs().max() / scale < 1e-5
+        mask = rng.random((g.n, S)) < 0.2
+        c_t = tbsr.spmv_hybrid_batched(
+            t, torch.from_numpy(mask).to(torch.bfloat16), num_rows=g.m)
+        c_j = np.asarray(jbsr.spmv_hybrid_batched(
+            j, jnp.asarray(mask, jnp.float32), num_rows=g.m, exact=False,
+            use_pallas=False))
+        np.testing.assert_array_equal(c_t.numpy(), c_j)
+    assert not any(tpanel.LAUNCHES.values())     # on the CPU: plain only
+
+
+@pytest.mark.parametrize("S", [1, 16])
+def test_panel_matmul_plain_bf16_operand_matches_pallas(S, monkeypatch):
+    """The wrapper on CPU tensors with a bf16 operand (one bf16 pass)
+    against the Pallas kernel in interpret mode on the same bf16 operand,
+    split=False, bucket by bucket: the products are exact in f32 on both
+    sides, so 1e-6 of max|y| covers the summation order."""
+    g = random_graph(m=1500, avg_deg=12, seed=5, symmetric=True)
+    monkeypatch.setattr(jbsr, "MAX_PANEL_WIDTH", 8)
+    monkeypatch.setattr(tbsr, "MAX_PANEL_WIDTH", 8)
+    t, j = _build_both(g, 2, None)
+    qx = (g.n + 127) // 128
+    x3d = torch.from_numpy(np.random.default_rng(S).random(
+        (qx, 128, S)).astype(np.float32)).to(torch.bfloat16)
+    x_np = x3d.float().numpy()
+    for pt, pj in zip(t.dense, j.dense):
+        R, W = pj.src.shape
+        xg = jnp.asarray(x_np[pj.src].reshape(R, W * 128, S), jnp.bfloat16)
+        with pltpu.force_tpu_interpret_mode():
+            y_j = np.asarray(jpanel(jnp.asarray(pj.panel), xg, S, split=False,
+                                    interpret=True))
+        y_t = tpanel.dense_panel_matmul(pt.panel, pt.src, x3d, S)
+        assert y_t.shape == (R, 128, S) and y_t.dtype == torch.float32
+        assert np.abs(y_t.numpy() - y_j).max() / np.abs(y_j).max() < 1e-6
+        torch.testing.assert_close(
+            y_t, tpanel.dense_panel_matmul_plain(pt.panel, pt.src,
+                                                 x3d.float(), S))
+
+
+def test_panel_kernel_route_by_shape_and_type():
+    """Which of K1's kernels a CUDA call takes: the CUDA-core kernel up to
+    8 columns with an f32 operand and for f32 panels at any S, the
+    tensor-core kernel beyond and for a bf16 operand."""
+    i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
+    route = tpanel.kernel_route
+    assert [route(i8, f32, S) for S in (1, 8, 9, 128)] == \
+        ["simt", "simt", "tc", "tc"]
+    assert [route(bf, f32, S) for S in (1, 9)] == ["simt", "tc"]
+    assert [route(i8, bf, S) for S in (1, 128)] == ["tc", "tc"]
+    assert {route(f32, x, S) for x in (f32, bf) for S in (1, 128)} == {"simt"}
+    assert tpanel.LAUNCHES == {"simt": 0, "tc": 0}
