@@ -17,7 +17,8 @@ result:
      pull PageRank on R-MAT-20 over the hybrid layout — generate, relabel,
      build_hybrid, upload, pr_solver on cuda — with K1's launch count read
      around it, the oracle's residual, and one spmv_hybrid apply timed
-     with K1 and with the plain version;
+     with K1 and with the plain version; the library yardstick at S = 1
+     (one torch.sparse_bsr_tensor product over the whole dense part);
   5. triangle counting's kernels K3 (rot_count), K4 (merge_count, with
      its class width W) and H1 (bitmap_count) against their plain
      versions on the card, pair by pair with exact integer equality, in
@@ -57,15 +58,20 @@ result:
      same matrix, exact, and timed (K2 alone, plain alone, whole sweeps)
      with CUDA events in turns plain/kernel/kernel/plain.
   9. kernel K1 at the batched shape (the tensor-core kernel,
-     csrc/dense_panel_matmul_tc.cu) against its plain version on the card:
-     every panel array of the R-MAT-16 layout and of the f32- and
-     bf16-panel weighted layouts (f32 panels take the CUDA-core kernel at
-     any S) at S = 16, 100 and 128, with a random f32 operand (limit
-     max|diff| / max|y| < 1e-5), a random bf16 operand (one bf16 pass:
-     limit 1e-4) and a 0/1 bf16 mask (exact on integer panels: 0
-     mismatching elements); edge cases R =
-     1 and W = 1, a slot whose blocks are all zero, S = 9; then the
-     R-MAT-20 panels at S = 128 with both operand types;
+     csrc/dense_panel_matmul_tc.cu: wgmma on TMA-staged tiles fed by a
+     producer warp) against its plain version on the card: every panel
+     array of the R-MAT-16 layout and of the f32- and bf16-panel weighted
+     layouts (f32 panels take the CUDA-core kernel at any S) at S = 16,
+     100, 128, 136 and 256 (two column tiles), with a random f32 operand
+     (limit max|diff| / max|y| < 1e-5), a random bf16 operand (one bf16
+     pass: limit 1e-4) and a 0/1 bf16 mask (exact on integer panels: 0
+     mismatching elements); edge cases R = 1 and W = 1, a slot whose
+     blocks are all zero, the widest slot with one cell a block, a bf16
+     panel array, at S = 9, 16, 100, 128, 136, 256; then the R-MAT-20
+     panels at S = 128 with both operand types, and the worst relative
+     error on the W = 32 arrays per operand type; the f32 operand's split
+     into three bf16 terms (split_operand's kernel) held to its plain
+     version exactly;
   10. BFS, multi-source BFS and Brandes BC on R-MAT-16: bfs pull, do and
      do_fused on both layouts with depths exactly the serial oracle's;
      bfs_multi_source (16 sources, both layouts) column by column against
@@ -83,7 +89,10 @@ result:
      BC to its panel-free 'ell' route and two of its sources to the numpy
      Brandes; one spmv_hybrid_batched apply timed with CUDA events in
      turns (plain, kernel, kernel, plain): the panel kernel alone with
-     both operand types, the CUDA-core kernel at S = 128 beside it, the
+     both operand types (the f32 operand's split included, and alone),
+     the library yardstick (one torch.sparse_bsr_tensor product over the
+     whole dense part, f32 and bf16 values, held to the kernel's sweep plus
+     the slot index_add_), the CUDA-core kernel at S = 128 beside it, the
      remainder alone (segment_reduce, and index_add_ beside it), the
      whole apply; the bytes the design reads; single-source BFS on the
      ell layout beside the hybrid one; peak device memory of the BC solve;
@@ -122,8 +131,13 @@ K1_REL_LIMIT = 1e-5
 # truncates (measured up to 9e-6 on the densest bf16-panel rows)
 K1_BF16_REL_LIMIT = 1e-4
 BATCH_SMOKE_SOURCES = 16    # multi-source BFS and BC at R-MAT-16
+K1_BATCH_S = (16, 100, 128, 136, 256)    # 136, 256: two column tiles
+K1_EDGE_S = (9, 16, 100, 128, 136, 256)
 K1_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul.cu"
 K1_TC_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul_tc.cu"
+# the f32 operand's split into bf16 terms: an XLA pass of the JAX package
+# (no Pallas kernel), a kernel of K1_TC_SOURCE in the port
+SPLIT_REPLACES = "gardenia_tpu/ops/bsr.py:319"
 K1_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:67"
 K2_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_minselect.cu"
 K2_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:113"
@@ -243,6 +257,98 @@ def panel_work(hyb, x_bytes: int) -> tuple:
         cells += p.panel.numel()
         nnz += int((p.panel != 0).sum())
     return nbytes, cells, nnz
+
+
+def dense_part(hyb, x3d, mb: int):
+    """hyb's dense part as spmv_hybrid_batched computes it, (mb, 128, S)
+    f32: K1 on every panel array (dense_panel_matmul_arrays), the slots
+    summed into their block rows by index_add_."""
+    import torch
+    from gardenia_tpu_torch.ops import panel
+    S = x3d.shape[-1]
+    y3d = torch.zeros((mb, 128, S), dtype=torch.float32, device=x3d.device)
+    parts = panel.dense_panel_matmul_arrays(
+        [(p.panel, p.src) for p in hyb.dense], x3d, S)
+    for p, part in zip(hyb.dense, parts):
+        y3d.index_add_(0, p.rows, part)
+    return y3d
+
+
+def bsr_library(hyb, nbc: int, mb: int, dtype):
+    """hyb's dense part as one torch.sparse_bsr_tensor with 128 x 128 blocks
+    (mb x nbc blocks), values in dtype: every slot's blocks at their block
+    column from src, sorted within a block row, all-zero padding blocks
+    dropped, the slots of a split row merged into their block row."""
+    import torch
+    keys, parts = [], []
+    for p in hyb.dense:
+        R, W = p.src.shape
+        blocks = p.panel.view(R, 128, W, 128).permute(0, 2, 1, 3)
+        keep = blocks.reshape(R, W, -1).ne(0).any(dim=2)
+        parts.append((blocks, keep))
+        keys.append((p.rows.long()[:, None] * nbc + p.src.long())[keep])
+    keys = torch.cat(keys)
+    order = torch.argsort(keys)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    values = torch.empty((order.numel(), 128, 128), dtype=dtype,
+                         device=keys.device)
+    start = 0
+    for blocks, keep in parts:
+        k = int(keep.sum())
+        values[pos[start:start + k]] = blocks[keep].to(dtype)
+        start += k
+    keys = keys[order]
+    crow = torch.zeros(mb + 1, dtype=torch.int64, device=keys.device)
+    crow[1:] = torch.bincount(keys // nbc, minlength=mb).cumsum(0)
+    return torch.sparse_bsr_tensor(crow, keys % nbc, values,
+                                   size=(mb * 128, nbc * 128))
+
+
+def library_yardstick(hyb, x3d, mb: int, dtype, want, limit: float) -> dict:
+    """K1's library yardstick: one PyTorch call, torch.sparse_bsr_tensor
+    (values in dtype) @ the operand, over hyb's whole dense part, held to
+    want (K1's dense part, dense_part()) within K1's limit on max|diff| /
+    max|y| and timed by CUDA events; the device kernels it ran name its
+    backend.  Where torch refuses the dtype or misses the limit, library_ms
+    is None and library_error says why."""
+    import warnings
+    import torch
+    S = x3d.shape[-1]
+    warnings.filterwarnings("ignore", message="Sparse")   # beta notices
+    try:
+        A = bsr_library(hyb, x3d.shape[0], mb, dtype)
+        x2d = x3d.reshape(-1, S).to(dtype)
+        y = (A @ x2d).float()
+        torch.cuda.synchronize()
+    except Exception as e:                   # torch may refuse the dtype
+        return {"library_ms": None,
+                "library_error": f"{type(e).__name__}: {e}"[:400]}
+    rel = float((y - want.reshape(-1, S)).abs().max()
+                / max(1e-30, float(want.abs().max())))
+    del y
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        A @ x2d
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+    top = sorted(prof.key_averages(), key=device_us, reverse=True)
+    out = {"library_backend": "; ".join(
+               f"{e.key[:70]} x{e.count} {device_us(e) / 1e3:.3f} ms"
+               for e in top[:4] if device_us(e) > 0) or "not captured",
+           "library_rel": rel}
+    ms = cuda_ms(lambda: A @ x2d, reps=3, warmup=1)
+    if rel < limit:
+        out["library_ms"] = ms
+    else:                                    # timed, but not the same sum
+        out.update(library_ms=None, library_ms_off_limit=ms, library_error=(
+            f"{dtype} BSR @ operand misses K1's limit: max|diff| / max|y| "
+            f"{rel:.3e} >= {limit} (its result is {dtype})"))
+    return out
 
 
 def check_k2(hyb, label: str, dev, k2: dict) -> None:
@@ -531,11 +637,15 @@ def check_k1_batched(hyb, label: str, S_list, dev, st: dict,
                     line.append(f"mask {wrong} of {diff.numel()} differ")
                 elif name == "bf16" and route == "tc":
                     st["max_rel_err_bf16"] = max(st["max_rel_err_bf16"], rel)
+                    if p.width == 32:
+                        st["w32_rel_bf16"] = max(st["w32_rel_bf16"], rel)
                     bad = not (np.isfinite(rel) and rel < K1_BF16_REL_LIMIT)
                     line.append(f"bf16 rel {rel:.2e}")
                 else:
                     st["max_abs_err"] = max(st["max_abs_err"], err)
                     st["max_rel_err"] = max(st["max_rel_err"], rel)
+                    if p.width == 32 and name == "f32":
+                        st["w32_rel_f32"] = max(st["w32_rel_f32"], rel)
                     bad = not (np.isfinite(rel) and rel < K1_REL_LIMIT)
                     line.append(f"{name} rel {rel:.2e}")
                 st["mismatches"] += int(bad)
@@ -552,17 +662,18 @@ def check_k1_batched(hyb, label: str, S_list, dev, st: dict,
 def k1_batched_edge_cases(dev, st: dict) -> None:
     """Small hand-made panel arrays: one slot of one block (R = 1, W = 1),
     a slot whose blocks are all zero beside a full one, the widest slot
-    (W = 32) with one nonzero cell per block, negative cells; at S = 9,
-    16, 100 and 128."""
+    (W = 32) with one nonzero cell per block, negative cells, bf16 panels
+    (integers 128..255); at S = 9, 16, 100, 128, 136 and 256."""
     import torch
     from gardenia_tpu_torch.ops import bsr
     rng = np.random.default_rng(31)
 
-    def arr(R, W, fill):
-        pn = np.zeros((R, 128, W * 128), np.int8)
+    def arr(R, W, fill, bf16=False):
+        pn = np.zeros((R, 128, W * 128), np.float32 if bf16 else np.int8)
         fill(pn)
         src = rng.integers(0, 40, (R, W)).astype(np.int32)
-        return bsr.DensePanel(torch.from_numpy(pn).to(dev),
+        tp = torch.from_numpy(pn)
+        return bsr.DensePanel((tp.to(torch.bfloat16) if bf16 else tp).to(dev),
                               torch.from_numpy(src).to(dev),
                               torch.arange(R, dtype=torch.int32, device=dev),
                               W)
@@ -582,13 +693,16 @@ def k1_batched_edge_cases(dev, st: dict) -> None:
              ("an all-zero slot", arr(3, 4, zero_slot)),
              ("W=32, one cell a block", arr(2, 32, one_cell_a_block)),
              ("dense +-127", arr(2, 2, lambda pn: pn.__setitem__(
-                 slice(None), rng.integers(-127, 128, pn.shape))))]
+                 slice(None), rng.integers(-127, 128, pn.shape)))),
+             ("bf16 panels", arr(3, 4, lambda pn: pn.__setitem__(
+                 slice(None), (rng.random(pn.shape) < 0.05)
+                 * rng.integers(128, 256, pn.shape)), bf16=True))]
     for label, p in cases:
         hyb = bsr.HybridMatrix((p,), None, None, None, None)
-        check_k1_batched(hyb, f"edge case {label}", (9, 16, 100, 128), dev,
-                         st, quiet=True)
-    print(f"[9] K1 batched edge cases: {len(cases)} arrays x S (9, 16, 100, "
-          f"128) x 3 operands equal to the plain version")
+        check_k1_batched(hyb, f"edge case {label}", K1_EDGE_S, dev, st,
+                         quiet=True)
+    print(f"[9] K1 batched edge cases: {len(cases)} arrays x S {K1_EDGE_S} x "
+          f"3 operands equal to the plain version")
 
 
 def brandes_numpy(g, s: int) -> np.ndarray:
@@ -682,6 +796,14 @@ def main() -> None:
     _build.lib()
     print(f"[2] built {so} from {len(_build.sources())} source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
+    # the batched K1's resources: registers a thread at launch (setmaxnreg
+    # then moves them: producer 56, consumers 224), spilled bytes, shared
+    # memory a CTA, stages, CTAs an SM
+    tc_info = {f"{str(pd)[6:]} panels, {str(xd)[6:]} operand":
+               panel.tc_kernel_info(pd, xd)
+               for pd in (torch.int8, torch.bfloat16)
+               for xd in (torch.bfloat16, torch.float32)}
+    print(f"[2] K1 tensor-core kernel: {json.dumps(tc_info)}")
 
     # ---- 3. K1 against its plain version, on the card ---------------------
     # panel arrays checked, and those at or over K1_REL_LIMIT
@@ -813,6 +935,16 @@ def main() -> None:
           f"with plain {ms['apply_plain']:.3f} ms (runs "
           + json.dumps({k: [round(v, 4) for v in vs]
                         for k, vs in t.items()}) + ")")
+    # the library's yardstick: one BSR product over the whole dense part,
+    # against K1's launches over every array plus the slot index_add_
+    mb = (g.m + 127) // 128
+    lib1 = library_yardstick(hyb, x3d, mb, torch.float32,
+                             dense_part(hyb, x3d, mb), K1_REL_LIMIT)
+    dense1_ms = cuda_ms(lambda: dense_part(hyb, x3d, mb), reps=5)
+    print(f"[4] library yardstick at S=1 (torch.sparse_bsr_tensor f32 @ x): "
+          f"{json.dumps(lib1)}; K1 over every array + the slot index_add_ "
+          f"{dense1_ms:.3f} ms")
+    torch.cuda.empty_cache()
 
     # ---- 5. TC kernels against their plain versions; R-MAT-16 TC --------
     from gardenia_tpu_torch.ops import tc_count as tcc
@@ -1092,13 +1224,12 @@ def main() -> None:
     from gardenia_tpu_torch.solvers import bc, bfs
     kb_stats = {"arrays_checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                 "max_rel_err": 0.0, "max_rel_err_bf16": 0.0,
+                "w32_rel_f32": 0.0, "w32_rel_bf16": 0.0,
                 "mask_elements": 0, "mask_mismatches": 0}
     before_check = dict(panel.LAUNCHES)
-    check_k1_batched(hyb16, f"rmat{SMOKE_SCALE}", (16, 100, 128), dev,
-                     kb_stats)
+    check_k1_batched(hyb16, f"rmat{SMOKE_SCALE}", K1_BATCH_S, dev, kb_stats)
     for kind, hw in weighted.items():
-        check_k1_batched(hw, f"weighted-{kind}", (16, 100, 128), dev,
-                         kb_stats)
+        check_k1_batched(hw, f"weighted-{kind}", K1_BATCH_S, dev, kb_stats)
     k1_batched_edge_cases(dev, kb_stats)
     small_rel = kb_stats["max_rel_err"]
     kb_stats["max_abs_err"] = 0.0       # below: the main path's shapes only
@@ -1111,6 +1242,23 @@ def main() -> None:
     if by_route["tc"] == 0 or kb_stats["mask_mismatches"]:
         fail("the tensor-core kernel did not run, or a mask product is "
              "inexact")
+    # the f32 operand's split into three bf16 terms: exact, bit for bit
+    split_checked = 0
+    for S in (9, 100, SOURCES):
+        xs = torch.from_numpy(np.random.default_rng(S).random(
+            (g.n // 128, 128, S)).astype(np.float32) * 1e3 - 500).to(dev)
+        before = panel.SPLIT_LAUNCHES["split"]
+        got, want = panel.split_operand(xs), panel.split_operand_plain(xs)
+        if panel.SPLIT_LAUNCHES["split"] != before + 1 or \
+                not torch.equal(got, want):
+            fail(f"the split kernel differs from its plain version at S={S}")
+        split_checked += got.numel()
+    del xs, got, want
+    print(f"[9] split_operand's kernel equal to its plain version, bit for "
+          f"bit: {split_checked} bf16 terms (S = 9, 100, {SOURCES}); worst "
+          f"rel on the W = 32 arrays: f32 operand "
+          f"{kb_stats['w32_rel_f32']:.3e}, bf16 operand "
+          f"{kb_stats['w32_rel_bf16']:.3e}")
 
     # ---- 10. BFS, multi-source BFS and BC on R-MAT-16 --------------------
     src16 = int(np.argmax(g16.degrees))
@@ -1249,8 +1397,10 @@ def main() -> None:
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     panel.LAUNCHES.update(simt=0, tc=0)
+    panel.SPLIT_LAUNCHES["split"] = 0
     rec_bc, g, res_bc = bench.bench_bc(MAIN_SCALE, dev, g=g)
     bc_routes = dict(panel.LAUNCHES)
+    bc_split = panel.SPLIT_LAUNCHES["split"]
     peak_bc = torch.cuda.max_memory_allocated() - resident
     print(json.dumps(rec_bc))
     bc_sweeps = 2 * res_bc.iterations          # forward + backward levels
@@ -1262,6 +1412,9 @@ def main() -> None:
     if bc_routes != {"simt": 0, "tc": bc_sweeps * n_panels * bc_solves}:
         fail(f"bc K1 launches {bc_routes} != (forward + backward levels) x "
              f"arrays x solves, all by the tensor-core kernel")
+    if bc_split != bc_sweeps * bc_solves:
+        fail(f"split launches {bc_split} != one an apply "
+             f"({bc_sweeps} x {bc_solves})")
     sc = res_bc.scores.cpu().numpy()
     if sc.shape != (g.m,) or not np.isfinite(sc).all() or sc.max() != 1.0:
         fail("bc scores are not finite of shape (m,) with a max of 1")
@@ -1297,10 +1450,16 @@ def main() -> None:
     xm = (xf < 0.3).to(torch.bfloat16)
     qx = g.n // 128
     x3f, x3m = xf.view(qx, 128, SOURCES), xm.view(qx, 128, SOURCES)
-    k1w, k1p = panel.dense_panel_matmul, panel.dense_panel_matmul_plain
+    arrays = [(p.panel, p.src) for p in hyb.dense]
 
-    def sweep(fn, x3):
-        return lambda: [fn(p.panel, p.src, x3, SOURCES) for p in hyb.dense]
+    def k1w(x3):
+        """K1 on every panel array, as spmv_hybrid_batched calls it: the
+        f32 operand's split (once) inside the timed sweep."""
+        return panel.dense_panel_matmul_arrays(arrays, x3, SOURCES)
+
+    def k1p(x3):
+        return [panel.dense_panel_matmul_plain(pn, src, x3, SOURCES)
+                for pn, src in arrays]
 
     def simt_sweep():
         """The CUDA-core kernel at S = 128, where the wrapper no longer
@@ -1320,17 +1479,34 @@ def main() -> None:
 
     kb_ms, kb_runs = {}, {}
     for name, x3 in (("f32", x3f), ("bf16", x3m)):
-        m_, r_ = turns({"kernel": sweep(k1w, x3), "plain": sweep(k1p, x3)},
+        m_, r_ = turns({"kernel": functools.partial(k1w, x3),
+                        "plain": functools.partial(k1p, x3)},
                        reps={"kernel": 5, "plain": 1})
         kb_ms[name], kb_runs[name] = m_, r_
     if any(p.panel.dtype != torch.int8 for p in hyb.dense):
         fail(f"rmat{MAIN_SCALE}'s panels are not int8")
-    for y_s, y_t in zip(simt_sweep(), sweep(k1w, x3f)()):
+    for y_s, y_t in zip(simt_sweep(), k1w(x3f)):
         rel = float((y_s - y_t).abs().max() / y_t.abs().max())
         if not rel < K1_REL_LIMIT:
             fail(f"K1's two kernels disagree at S={SOURCES}: rel {rel}")
     del y_s, y_t
     simt_ms = cuda_ms(simt_sweep, reps=2, warmup=1)
+    panel.SPLIT_LAUNCHES["split"] = 0
+    split_ms = {"kernel": cuda_ms(lambda: panel.split_operand(x3f), reps=5),
+                "plain": cuda_ms(lambda: panel.split_operand_plain(x3f),
+                                 reps=3)}
+    # the library's yardstick over the whole dense part, against K1's
+    # launches over every array plus the slot index_add_
+    mb = (g.m + 127) // 128
+    lib128, dense128_ms = {}, {}
+    for name, x3, dtype, limit in (
+            ("f32", x3f, torch.float32, K1_REL_LIMIT),
+            ("bf16", x3m, torch.bfloat16, K1_BF16_REL_LIMIT)):
+        lib128[name] = library_yardstick(hyb, x3, mb, dtype,
+                                         dense_part(hyb, x3, mb), limit)
+        dense128_ms[name] = cuda_ms(lambda: dense_part(hyb, x3, mb), reps=3,
+                                    warmup=1)
+        torch.cuda.empty_cache()
     zeros = functools.partial(torch.zeros, (g.m, SOURCES), device=dev)
     rem_ms = {
         "segment_reduce f32": cuda_ms(lambda: bsr.batched_remainder(
@@ -1354,9 +1530,13 @@ def main() -> None:
         # and an add for each column and bf16 term), not every cell's
         kb_bound[name] = bound(need, 2 * nz * SOURCES * terms,
                                TENSOR_BF16_OPS_PER_S)
-        # as designed: every block's operand block is staged once per slot
+        # as designed: every block's operand tile is staged once per slot,
+        # one bf16 tile a term; an f32 operand's split reads it once and
+        # writes its three terms
         kb_read[name] = (panel_bytes + out_bytes
-                         + hyb.num_blocks * 128 * SOURCES * x_el)
+                         + hyb.num_blocks * 128 * SOURCES * 2 * terms
+                         + (qx * 128 * SOURCES * (4 + 6) if terms == 3
+                            else 0))
     print(f"[11] gpu: {gpu}")
     print(f"[11] dense panels, one sweep at S={SOURCES} ({slots} slots, "
           f"{hyb.num_blocks} blocks, {nz} nonzero of {cells} cells): "
@@ -1371,6 +1551,12 @@ def main() -> None:
           f"{simt_ms:.3f} ms (runs " + json.dumps(
               {n_: {k: [round(v, 3) for v in vs] for k, vs in r_.items()}
                for n_, r_ in kb_runs.items()}) + ")")
+    print(f"[11] f32 operand's split alone: kernel {split_ms['kernel']:.3f} "
+          f"ms, plain {split_ms['plain']:.3f} ms; library yardstick "
+          f"(torch.sparse_bsr_tensor @ operand, f32 values with the f32 "
+          f"operand, bf16 values with the mask): {json.dumps(lib128)}; K1 "
+          f"over every array + the slot index_add_ "
+          f"{json.dumps(dense128_ms)} ms")
     print(f"[11] the batched remainder, {hyb.rem_dst.shape[0]} edges x "
           f"{SOURCES * 4} B rows: " + json.dumps(rem_ms)
           + "; the whole apply: " + json.dumps(apply_ms))
@@ -1426,7 +1612,7 @@ def main() -> None:
         # the same bytes as K2's sweep (S = 1: one f32 out per row), a
         # multiply and an add per cell
         **dict(zip(("bound_ms", "bound_by"), bound(k2_bytes, 2 * cells))),
-        "library_ms": None}, {
+        "dense_with_index_add_ms": dense1_ms, **lib1}, {
         # K1 at the batched shape: ms, plain_ms and bound are the f32
         # operand's (BC's sweep); the bf16 operand's (MS-BFS's) beside them
         "name": "dense_panel_matmul_tc", "route": "cuda",
@@ -1444,6 +1630,24 @@ def main() -> None:
         "bound_ms_bf16_operand": kb_bound["bf16"][0],
         "bytes_read_bf16_operand": kb_read["bf16"],
         "simt_route_ms": simt_ms,
+        "resources": tc_info,
+        "w32_rel_f32": kb_stats["w32_rel_f32"],
+        "w32_rel_bf16": kb_stats["w32_rel_bf16"],
+        "dense_with_index_add_ms": dense128_ms["f32"],
+        "dense_with_index_add_ms_bf16_operand": dense128_ms["bf16"],
+        **lib128["f32"],
+        **{f"{k}_bf16_operand": v for k, v in lib128["bf16"].items()}}, {
+        # the f32 operand's split into three bf16 terms, once an apply of
+        # the BC bench (bc_batched's applies all take an f32 operand)
+        "name": "split_operand", "route": "cuda", "source": K1_TC_SOURCE,
+        "replaces": SPLIT_REPLACES, "launches": bc_split,
+        "launches_by_path": {f"bc bench rmat{MAIN_SCALE}": bc_split},
+        "mismatches": 0, "max_abs_err": 0.0, "ms": split_ms["kernel"],
+        "plain_ms": split_ms["plain"],
+        # reads the f32 operand, writes three bf16 terms; no arithmetic
+        # beyond the roundings
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            qx * 128 * SOURCES * (4 + 3 * 2), 6 * qx * 128 * SOURCES))),
         "library_ms": None}, {
         "name": "dense_panel_minselect", "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_REPLACES,

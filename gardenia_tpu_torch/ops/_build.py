@@ -113,10 +113,19 @@ def lib() -> ctypes.CDLL:
                 vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
             so.gdn_dense_panel_matmul.restype = ci
             ll = ctypes.c_longlong
-            # (panel, panel dtype, src, x3d, x3d dtype, out, R, W, S, stream)
+            # (panel, panel dtype, src, terms, 1 | 3 terms, out, R, W, Sp,
+            #  rows a term, stream)
             so.gdn_dense_panel_matmul_tc.argtypes = [
-                vp, ci, vp, vp, ci, vp, ll, ci, ci, vp]
+                vp, ci, vp, vp, ci, vp, ll, ci, ci, ll, vp]
             so.gdn_dense_panel_matmul_tc.restype = ci
+            # (x, terms, rows, S, Sp, stream)
+            so.gdn_split_bf16x3.argtypes = [vp, vp, ll, ci, ci, vp]
+            so.gdn_split_bf16x3.restype = ci
+            # (panel dtype, terms, registers, local bytes, shared bytes,
+            #  stages, CTAs an SM)
+            ip = ctypes.POINTER(ci)
+            so.gdn_dense_panel_matmul_tc_info.argtypes = [ci, ci] + [ip] * 5
+            so.gdn_dense_panel_matmul_tc_info.restype = ci
             # (panel, dtype, src, x2d, out, R, W, sentinel, stream)
             so.gdn_dense_panel_minselect.argtypes = [
                 vp, ci, vp, vp, vp, ll, ci, ci, vp]

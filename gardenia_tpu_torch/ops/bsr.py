@@ -18,8 +18,9 @@ bf16 panel is built in f32 and converted through torch.
 `spmv_hybrid` runs each panel array through kernel K1 (ops/panel.py) with
 an f32 operand and f32 accumulation, and the remainder through spmv_ell.
 `spmv_hybrid_batched` does the same for S operand vectors at once: K1's
-tensor-core kernel on the panels, a per-edge row gather and a segment sum
-on the remainder.  The reference's hi/lo bf16 operand split, its `exact=`
+tensor-core kernel on the panels (an f32 operand split into its three
+bf16 terms once an apply), a per-edge row gather and a segment sum on the
+remainder.  The reference's hi/lo bf16 operand split, its `exact=`
 and `use_pallas=` arguments and its `_small_dense` precision policy were
 MXU workarounds and are not ported: the operand's dtype states the
 precision (f32: f32-faithful products; bf16: one bf16 pass).
@@ -325,10 +326,11 @@ def spmv_hybrid_batched(hyb: HybridMatrix, x2d: torch.Tensor, *,
             x3d[:n] = x2d
             x3d = x3d.view(qx, LANES, S)
         y3d = x2d.new_zeros((mb, LANES, S), dtype=torch.float32)
-        for p in hyb.dense:
+        parts = _panel.dense_panel_matmul_arrays(
+            [(p.panel, p.src) for p in hyb.dense], x3d, S)
+        for p, part in zip(hyb.dense, parts):
             # split rows repeat in p.rows: index_add_ sums their slots
-            y3d.index_add_(0, p.rows,
-                           _panel.dense_panel_matmul(p.panel, p.src, x3d, S))
+            y3d.index_add_(0, p.rows, part)
         y = y3d.view(-1, S)[:num_rows]
     else:
         y = x2d.new_zeros((num_rows, S), dtype=torch.float32)

@@ -188,7 +188,8 @@ def test_scatter_into_drops_out_of_range():
 
 
 @pytest.mark.parametrize("panel_kind,S", [("int8", 1), ("int8", 8),
-                                          ("f32", 1), ("f32", 8)])
+                                          ("f32", 1), ("f32", 8),
+                                          ("int8", 16), ("int8", 128)])
 def test_panel_matmul_plain_matches_pallas(panel_kind, S, monkeypatch):
     """The wrapper on CPU tensors (its plain version) against the Pallas
     kernel in interpret mode, bucket by bucket."""
@@ -406,7 +407,7 @@ def test_spmv_hybrid_batched_matches_jax(kind, S):
     assert not any(tpanel.LAUNCHES.values())     # on the CPU: plain only
 
 
-@pytest.mark.parametrize("S", [1, 16])
+@pytest.mark.parametrize("S", [1, 16, 128])
 def test_panel_matmul_plain_bf16_operand_matches_pallas(S, monkeypatch):
     """The wrapper on CPU tensors with a bf16 operand (one bf16 pass)
     against the Pallas kernel in interpret mode on the same bf16 operand,
@@ -446,3 +447,118 @@ def test_panel_kernel_route_by_shape_and_type():
     assert [route(i8, bf, S) for S in (1, 128)] == ["tc", "tc"]
     assert {route(f32, x, S) for x in (f32, bf) for S in (1, 128)} == {"simt"}
     assert tpanel.LAUNCHES == {"simt": 0, "tc": 0}
+
+
+@pytest.mark.parametrize("S", [9, 100, 128, 136])
+def test_panel_tc_column_padding_and_crop(S):
+    """The 'tc' route's host code: S is padded to a multiple of 8 columns
+    (TMA's 16-byte rows), zeros past S; S = 128 and 136 pay no copy; the
+    output's crop gives back the first S columns."""
+    Sp = tpanel.padded_columns(S)
+    assert Sp % tpanel.TC_COL_ALIGN == 0 and S <= Sp < S + 8
+    x = torch.rand((3, 128, S), generator=torch.Generator().manual_seed(S))
+    xp = tpanel.pad_columns(x, Sp)
+    assert xp.shape == (3, 128, Sp) and xp.is_contiguous()
+    assert xp.data_ptr() % 16 == 0
+    torch.testing.assert_close(xp[..., :S], x, rtol=0, atol=0)
+    assert not xp[..., S:].any()
+    if Sp == S:
+        assert xp.data_ptr() == x.data_ptr()        # no copy
+    out = torch.rand((2, 128, Sp))
+    crop = tpanel.crop_columns(out, S)
+    assert crop.shape == (2, 128, S) and crop.is_contiguous()
+    torch.testing.assert_close(crop, out[..., :S], rtol=0, atol=0)
+    assert (crop.data_ptr() == out.data_ptr()) == (Sp == S)
+    bf = tpanel.pad_columns(x.to(torch.bfloat16), Sp)
+    assert bf.dtype == torch.bfloat16 and not bf[..., S:].float().any()
+
+
+@pytest.mark.parametrize("S", [9, 128])
+def test_split_operand_plain_is_exact(S):
+    """The plain version of the f32 operand's split: three bf16 terms whose
+    f32 sum is x exactly (hi, then mid, then lo), zero past S; on a CPU
+    tensor split_operand is the plain version and counts no launch."""
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy((rng.random((4, 128, S)) * 10.0 ** rng.integers(
+        -6, 6, (4, 128, S))).astype(np.float32))
+    x[0, 0, 0] = 0.0
+    terms = tpanel.split_operand(x)
+    Sp = tpanel.padded_columns(S)
+    assert terms.shape == (3, 4, 128, Sp) and terms.dtype == torch.bfloat16
+    total = (terms[0].float() + terms[1].float()) + terms[2].float()
+    assert torch.equal(total[..., :S], x)
+    assert not terms[..., S:].float().any()
+    # each term is the rounding of what the earlier ones left
+    assert torch.equal(terms[0][..., :S], x.to(torch.bfloat16))
+    torch.testing.assert_close(terms, tpanel.split_operand_plain(x),
+                               rtol=0, atol=0)
+    assert tpanel.SPLIT_LAUNCHES == {"split": 0}
+    with pytest.raises(ValueError):
+        tpanel.split_operand(x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("S", [9, 100, 136])
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+def test_panel_tc_host_path_matches_plain(S, x_dtype):
+    """What the 'tc' route hands its kernel, multiplied by the plain
+    version: the padded bf16 operand, or the three split terms summed, over
+    Sp columns and cropped to S, equals the plain product on the operand
+    itself (products of small integers and bf16 terms are exact in f32;
+    1e-6 of max|y| covers the order of the sums)."""
+    g = random_graph(m=400, avg_deg=12, seed=4, symmetric=True)
+    t = tbsr.build_hybrid(g.rowptr, g.colidx, None, num_cols=g.n,
+                          dense_threshold=4)
+    qx = (g.n + 127) // 128
+    x = torch.from_numpy(np.random.default_rng(S).random(
+        (qx, 128, S)).astype(np.float32))
+    if x_dtype == "bf16":
+        x = x.to(torch.bfloat16)
+    Sp = tpanel.padded_columns(S)
+    xt = tpanel.tc_operand(x)
+    assert xt.shape == (1 if x_dtype == "bf16" else 3, qx, 128, Sp)
+    assert xt.dtype == torch.bfloat16 and xt.is_contiguous()
+    for p in t.dense:
+        want = tpanel.dense_panel_matmul_plain(p.panel, p.src, x, S)
+        got = tpanel.crop_columns(sum(
+            tpanel.dense_panel_matmul_plain(p.panel, p.src, term, Sp)
+            for term in xt), S)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("S", [1, 16, 128])
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+def test_panel_matmul_arrays_is_one_call_per_array(S, x_dtype, monkeypatch):
+    """dense_panel_matmul_arrays over a hybrid layout's panel arrays equals
+    dense_panel_matmul on each; on CPU tensors it runs the plain version
+    only: the operand is never split or padded for the kernel there, and
+    no launch is counted."""
+    g = random_graph(m=1500, avg_deg=12, seed=5, symmetric=True)
+    monkeypatch.setattr(tbsr, "MAX_PANEL_WIDTH", 8)
+    t = tbsr.build_hybrid(g.rowptr, g.colidx, None, num_cols=g.n,
+                          dense_threshold=2)
+    assert len(t.dense) >= 2
+    qx = (g.n + 127) // 128
+    x = torch.from_numpy(np.random.default_rng(S).random(
+        (qx, 128, S)).astype(np.float32))
+    if x_dtype == "bf16":
+        x = x.to(torch.bfloat16)
+
+    def refuse(*_):
+        raise AssertionError("the CPU path made the kernel's operand")
+    monkeypatch.setattr(tpanel, "tc_operand", refuse)
+    monkeypatch.setattr(tpanel, "split_operand", refuse)
+    got = tpanel.dense_panel_matmul_arrays(
+        ((p.panel, p.src) for p in t.dense), x, S)
+    assert len(got) == len(t.dense)
+    for p, y in zip(t.dense, got):
+        torch.testing.assert_close(
+            y, tpanel.dense_panel_matmul(p.panel, p.src, x, S),
+            rtol=0, atol=0)
+    assert tpanel.LAUNCHES == {"simt": 0, "tc": 0}
+    assert tpanel.dense_panel_matmul_arrays([], x, S) == []
+    with pytest.raises(ValueError):
+        tpanel.dense_panel_matmul_arrays(
+            [(p.panel, p.src) for p in t.dense] + [(t.dense[0].panel[:, :64],
+                                                   t.dense[0].src)], x, S)
