@@ -101,6 +101,28 @@ result:
      layout where a round is dense) in seconds and the best of three
      later solves in ms, one line each; and what building the hybrid
      layout at the first solve would add (the layout's build alone).
+  13. SpMV: K1 against its plain version (S = 1) in every panel array of
+     the SpMV solver's threshold-64 layouts (directed R-MAT-16 with the
+     uniform 0.2: int8 counts x scale; the weighted f32 and bf16
+     graphs); every variant (ell, hybrid, segment, push_pb on the
+     transpose, auto) against the serial product within sqrt(eps) of
+     f32; the main path: the port's bench (--kernel spmv) at R-MAT-20 on
+     phase 4's layout, K1's launches set to 0 before and read after
+     (reps x panel arrays x solves, all by the CUDA-core kernel), its
+     power loop held to scipy's in f64; one apply of the PR layout timed
+     with CUDA events beside ELL-only applies (original and relabelled
+     ids);
+  14. SSSP: bf, delta, hybrid and nearfar on weighted R-MAT-16 against
+     the serial Dijkstra, exactly; the port's bench (--kernel sssp,
+     nearfar on the weighted grid of side 1024) with its rounds, its
+     distances equal to scipy's Dijkstra;
+  15. the port's MST bench at R-MAT-20, its weight equal to scipy's
+     minimum_spanning_tree; the SCC bench on the directed R-MAT-20
+     ('color') and the 'wcc' variant, each a bijection with scipy's
+     strong components; cluster_threshold (unweighted, and weighted at
+     threshold 128) against scipy's components and random_walks (every
+     step an out-edge or a sink staying put, the seed repeating the
+     walks) at R-MAT-16.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -131,6 +153,7 @@ K1_REL_LIMIT = 1e-5
 # truncates (measured up to 9e-6 on the densest bf16-panel rows)
 K1_BF16_REL_LIMIT = 1e-4
 BATCH_SMOKE_SOURCES = 16    # multi-source BFS and BC at R-MAT-16
+SSSP_SMOKE_DELTA = 64       # the four SSSP variants at R-MAT-16
 K1_BATCH_S = (16, 100, 128, 136, 256)    # 136, 256: two column tiles
 K1_EDGE_S = (9, 16, 100, 128, 136, 256)
 K1_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_matmul.cu"
@@ -758,6 +781,278 @@ def bfs_depths_scipy(g, sources) -> np.ndarray:
             depth[todo[ready]] = depth[pred[todo[ready]]] + 1
             todo = todo[~ready]
     return out
+
+
+def scipy_csr(g, data=None):
+    """g's CSR as a scipy matrix (ones, or `data` in CSR order)."""
+    import scipy.sparse as sp
+    vals = np.ones(g.nnz, np.float64) if data is None else data
+    return sp.csr_matrix((vals, g.colidx, g.rowptr), shape=(g.m, g.n))
+
+
+def spmv_phase(dev, gpu: str, g, hyb, k1_stats: dict) -> dict:
+    """Phase 13: K1 in the SpMV solver's threshold-64 layouts, every SpMV
+    variant against the serial product, the R-MAT-20 SpMV bench on the
+    PR layout, and one apply on the hybrid layout beside ELL-only ones.
+    Returns K1's launches in the bench and the timings."""
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core import views
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.core.graph import Graph
+    from gardenia_tpu_torch.ops import bsr, panel
+    from gardenia_tpu_torch.ops.semiring import F32_PLUS_TIMES
+    from gardenia_tpu_torch.ops.spmv import spmv_ell
+    from gardenia_tpu_torch.solvers import spmv
+    from gardenia_tpu_torch.verify import maximum_relative_error, oracles
+    limit = float(np.sqrt(np.finfo(np.float32).eps))
+
+    # K1 in every panel array of the threshold-64 layouts the solver builds
+    gd = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                        symmetrize=False, need_reverse=True)
+    cases = [(f"rmat{SMOKE_SCALE} directed x 0.2", gd,
+              np.full(gd.nnz, 0.2, np.float32), torch.int8)]
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gw = weighted_graph(kind)
+        cases.append((f"weighted-{kind}", gw,
+                      np.asarray(gw.weights, np.float32), dtype))
+    for label, gc, Ax, dtype in cases:
+        run = spmv.hybrid_layout(gc, Ax, dev)
+        if not run.hyb.dense or any(p.panel.dtype != dtype
+                                    for p in run.hyb.dense):
+            fail(f"the threshold-64 layout of {label} must hold {dtype} "
+                 f"panels")
+        if (run.hyb.scale != 1.0) != (dtype == torch.int8):
+            fail(f"{label}: scale {run.hyb.scale}")
+        check_k1(run.hyb, f"thr64 {label}", (1,), dev, k1_stats)
+        print(f"[13] threshold-64 layout of {label}: "
+              f"{len(run.hyb.dense)} panel arrays of {dtype}, "
+              f"{run.hyb.num_blocks} blocks, scale {run.hyb.scale}; K1 "
+              f"matches its plain version")
+
+    # every variant against the serial product (push_pb on the transpose)
+    x16 = np.random.default_rng(13).random(gd.n).astype(np.float32)
+    gt = Graph(gd.in_rowptr, gd.in_colidx, num_cols=gd.m)
+    errs = {}
+    for label, gc, Ax, _ in cases:
+        xs = x16 if gc is gd else \
+            np.random.default_rng(14).random(gc.n).astype(np.float32)
+        want = oracles.spmv_serial(gc, Ax, xs)
+        for variant in ("ell", "hybrid", "segment", "push_pb", "auto"):
+            if variant == "push_pb":
+                if gc is not gd:
+                    continue
+                # the transpose of the transpose: Ax is uniform, so the
+                # values need no reordering
+                y = spmv.spmv_solver(gt, np.full(gt.nnz, 0.2, np.float32),
+                                     xs, variant=variant, device=dev)
+            else:
+                y = spmv.spmv_solver(gc, Ax, xs, variant=variant,
+                                     device=dev)
+            y = y.cpu().numpy()
+            if y.shape != (gc.m,) or not np.isfinite(y).all():
+                fail(f"spmv {variant} {label}: not finite of shape (m,)")
+            errs[f"{variant} {label}"] = maximum_relative_error(y, want)
+    print(f"[13] SpMV variants vs the serial product (max rel err, limit "
+          f"sqrt(eps) {limit:.3e}): " + json.dumps(errs))
+    if not all(e < limit for e in errs.values()):
+        fail("an SpMV variant disagrees with the serial product")
+
+    # the main path: the SpMV bench at R-MAT-20 on the PR layout
+    solves = bench.WARMUP + bench.ITERS
+    n_before = len(g._device_cache)
+    panel.LAUNCHES.update(simt=0, tc=0)
+    record, _, y = bench.bench_spmv(MAIN_SCALE, dev, g=g)
+    launches = dict(panel.LAUNCHES)
+    print(json.dumps(record))
+    g2, hyb_b, _ = views.relabeled_hybrid(g, dev)
+    want = record["detail"]["reps"] * len(hyb.dense) * solves
+    print(f"[13] spmv bench rmat{MAIN_SCALE}: K1 launches {launches} over "
+          f"{solves} solves ({want} = reps x panel arrays x solves); the "
+          f"layout is phase 4's: {hyb_b is hyb}; cache entries of the "
+          f"graph before/after {n_before}/{len(g._device_cache)}")
+    if hyb_b is not hyb or launches != {"simt": want, "tc": 0} or want == 0:
+        fail("the SpMV bench did not run K1 reps x arrays x solves times "
+             "on phase 4's layout")
+    # the power loop in scipy over the relabelled CSR, in f64
+    a2 = scipy_csr(g2) * 0.2
+    xr = np.full(g2.n, 0.3)
+    for _ in range(record["detail"]["reps"]):
+        yr = a2 @ xr
+        xr = yr / np.abs(yr).max()
+    err = float(np.abs(y.cpu().numpy() - xr).max())
+    print(f"[13] the bench's 8-apply power loop vs scipy's (f64): max|diff|"
+          f" {err:.3e} (max|y| = 1)")
+    if not err < 1e-5:
+        fail(f"the SpMV bench's power loop disagrees with scipy's: {err}")
+
+    # one apply: the hybrid layout (K1 + ELL remainder) beside ELL-only
+    # ones (PR's layout="ell" over the original ids; the relabelled ids)
+    x = torch.from_numpy(np.random.default_rng(15).random(g.n)
+                         .astype(np.float32)).to(dev)
+    ell_orig = views.ell(g, dev, reverse=True)
+    ell_rel = views.ell(g2, dev, reverse=True)
+    y_h = bsr.spmv_hybrid(hyb, x, num_rows=g.m)
+    for name, mat in (("ell", ell_orig), ("ell relabelled", ell_rel)):
+        y_e = spmv_ell(mat, x, semiring=F32_PLUS_TIMES, num_rows=g.m)
+        if name == "ell relabelled":
+            rel = float((y_h - y_e).abs().max() / y_e.abs().max())
+            if not rel < 1e-5:
+                fail(f"the hybrid apply disagrees with the ELL one: {rel}")
+    applies = {"hybrid": lambda: bsr.spmv_hybrid(hyb, x, num_rows=g.m)}
+    for name, mat in (("ell", ell_orig), ("ell relabelled", ell_rel)):
+        applies[name] = functools.partial(spmv_ell, mat, x,
+                                          semiring=F32_PLUS_TIMES,
+                                          num_rows=g.m)
+    ms, busy = {}, {}
+    for which in list(applies) * 2:
+        ms.setdefault(which, []).append(cuda_ms(applies[which], reps=10))
+    # the device's own time: busy ms an apply from the profiler's kernels
+    # (the events above also hold the host's enqueue where it is slower),
+    # traced as profile_solve traces a solve
+    from torch.profiler import ProfilerActivity, profile
+    for which, fn in applies.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time > 0]
+        busy[which] = {"ms": sum(e.device_time for e in kernels) / 1e3 / 3,
+                       "device_events": len(kernels) / 3}
+    print(f"[13] gpu: {gpu}")
+    print(f"[13] one PR-layout apply at rmat{MAIN_SCALE}, ms (CUDA events, "
+          f"two turns): " + json.dumps(ms) + "; device busy ms an apply "
+          f"(torch.profiler): " + json.dumps(busy))
+    return {"launches": launches["simt"], "apply_ms": ms, "busy_ms": busy}
+
+
+def sssp_phase(dev, gpu: str) -> None:
+    """Phase 14: the four SSSP variants at R-MAT-16 against the serial
+    Dijkstra; the grid-1024 bench against scipy's Dijkstra."""
+    import scipy.sparse.csgraph as csg
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.solvers.sssp import sssp_solver
+    from gardenia_tpu_torch.verify import oracles
+    gw = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                        symmetrize=True, need_reverse=True, weighted=True)
+    src = int(np.argmax(gw.degrees))
+    t0 = time.perf_counter()
+    want = oracles.sssp_serial(gw, src)
+    t_or = time.perf_counter() - t0
+    for variant in ("bf", "delta", "hybrid", "nearfar"):
+        t0 = time.perf_counter()
+        res = sssp_solver(gw, src, SSSP_SMOKE_DELTA, variant=variant,
+                          device=dev)
+        secs = time.perf_counter() - t0
+        same = bool((res.dist.cpu().numpy() == want).all())
+        print(f"[14] sssp {variant} rmat{SMOKE_SCALE} weighted from {src}, "
+              f"delta {SSSP_SMOKE_DELTA}: {res.iterations} rounds in "
+              f"{secs:.2f} s (first solve), distances "
+              f"{'equal' if same else 'NOT equal'} to the serial Dijkstra "
+              f"({t_or:.1f} s)")
+        if not same or res.dist.dtype.itemsize != 4:
+            fail(f"sssp {variant} disagrees with the serial Dijkstra")
+    record, gg, res = bench.bench_sssp(MAIN_SCALE, dev)
+    print(json.dumps(record))
+    t0 = time.perf_counter()
+    want = csg.dijkstra(scipy_csr(gg, np.asarray(gg.weights, np.float32)
+                                  .astype(np.int32).astype(np.float64)),
+                        directed=True, indices=0)
+    dist = res.dist.cpu().numpy()
+    same = bool(np.isfinite(want).all() and (dist == want).all())
+    print(f"[14] sssp nearfar grid{1 << (MAIN_SCALE // 2)}: |V| {gg.m} |E| "
+          f"{gg.nnz}, {res.iterations} rounds, distances "
+          f"{'equal' if same else 'NOT equal'} to scipy's Dijkstra "
+          f"({time.perf_counter() - t0:.1f} s); gpu: {gpu}")
+    if not same:
+        fail("the SSSP bench disagrees with scipy's Dijkstra")
+
+
+def mst_scc_phase(dev, gpu: str, g) -> None:
+    """Phase 15: the R-MAT-20 MST bench against scipy's spanning tree; the
+    directed R-MAT-20 SCC bench ('color') and 'wcc' against scipy's strong
+    components; cluster_threshold and random_walks at R-MAT-16."""
+    import scipy.sparse.csgraph as csg
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.cli import same_components
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.solvers.clustering import cluster_threshold
+    from gardenia_tpu_torch.solvers.sampling import random_walks
+    from gardenia_tpu_torch.solvers.scc import scc_solver
+    record, gw, res = bench.bench_mst(MAIN_SCALE, dev, g=g)
+    print(json.dumps(record))
+    t0 = time.perf_counter()
+    want = float(csg.minimum_spanning_tree(
+        scipy_csr(gw, np.asarray(gw.weights, np.float64))).sum())
+    ok = res.total_weight == want and \
+        res.edge_mask.shape == (gw.nnz,) and res.comp.shape == (gw.m,)
+    print(f"[15] mst rmat{MAIN_SCALE}: weight {res.total_weight}, scipy's "
+          f"minimum_spanning_tree {want} ({time.perf_counter() - t0:.1f} s):"
+          f" {'equal' if ok else 'NOT equal'}")
+    if not ok:
+        fail("the MST bench's weight differs from scipy's")
+    del gw, res
+    record, gd, res = bench.bench_scc(MAIN_SCALE, dev)
+    print(json.dumps(record))
+    t0 = time.perf_counter()
+    _, want = csg.connected_components(scipy_csr(gd), directed=True,
+                                       connection="strong")
+    t_sp = time.perf_counter() - t0
+    for variant, r in (("color", res),
+                       ("wcc", scc_solver(gd, variant="wcc", device=dev))):
+        root = r.scc_root.cpu().numpy()
+        ok = root.shape == (gd.m,) and same_components(root, want)
+        print(f"[15] scc {variant} rmat{MAIN_SCALE}d: {r.iterations} rounds, "
+              f"{len(np.unique(root))} SCCs, scipy's strong components "
+              f"{want.max() + 1} ({t_sp:.1f} s): "
+              f"{'a bijection' if ok else 'NOT a bijection'}")
+        if not ok:
+            fail(f"scc {variant} disagrees with scipy's strong components")
+    del gd, res
+    for weighted, thr in ((False, 0.0), (True, 128.0)):
+        gc = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                            symmetrize=True, weighted=weighted)
+        res = cluster_threshold(gc, thr, device=dev)
+        keep = np.ones(gc.nnz, bool) if gc.weights is None else \
+            np.asarray(gc.weights, np.float32) >= np.float32(thr)
+        kept = scipy_csr(gc, keep.astype(np.float64))
+        kept.eliminate_zeros()          # csgraph takes stored zeros as edges
+        _, want = csg.connected_components(kept, directed=False)
+        labels = res.labels.cpu().numpy()
+        ok = same_components(labels, want) and \
+            res.num_clusters == want.max() + 1
+        print(f"[15] cluster_threshold rmat{SMOKE_SCALE} threshold {thr}"
+              f"{' (weighted)' if weighted else ''}: {res.num_clusters} "
+              f"clusters, scipy's components {want.max() + 1}: "
+              f"{'equal' if ok else 'NOT equal'}")
+        if not ok:
+            fail("cluster_threshold disagrees with scipy's components")
+    gd16 = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                          symmetrize=False)
+    starts = np.arange(0, gd16.m, 61)
+    walks = random_walks(gd16, starts, 16, seed=5, device=dev)
+    again = random_walks(gd16, starts, 16, seed=5, device=dev)
+    w = walks.cpu().numpy().astype(np.int64)
+    a, b = w[:, :-1].ravel(), w[:, 1:].ravel()
+    src = np.repeat(np.arange(gd16.m, dtype=np.int64), np.diff(gd16.rowptr))
+    keys = src * gd16.m + gd16.colidx
+    sink = np.diff(gd16.rowptr)[a] == 0
+    ok = (walks.shape == (len(starts), 17) and (w[:, 0] == starts).all()
+          and bool(torch.equal(walks, again))
+          and (np.isin(a * gd16.m + b, keys) | (sink & (a == b))).all())
+    print(f"[15] random_walks rmat{SMOKE_SCALE}d: {len(starts)} walkers x 16 "
+          f"steps, {int(sink.sum())} steps at sinks, every step an out-edge "
+          f"or a sink staying put, the seed repeating the walks: "
+          f"{'yes' if ok else 'NO'}; gpu: {gpu}")
+    if not ok:
+        fail("random_walks left the graph or its seed")
 
 
 def main() -> None:
@@ -1600,12 +1895,24 @@ def main() -> None:
             del fresh
     print(f"[12] gpu: {gpu}")
 
+    # ---- 13. SpMV: threshold-64 layouts, variants, the R-MAT-20 bench ----
+    spmv13 = spmv_phase(dev, gpu, g, hyb, k1_stats)
+
+    # ---- 14. SSSP: four variants at R-MAT-16, the grid-1024 bench --------
+    sssp_phase(dev, gpu)
+
+    # ---- 15. MST, SCC, clustering and random walks ------------------------
+    mst_scc_phase(dev, gpu, g)
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches + bfs_routes["simt"],
+        "replaces": K1_REPLACES,
+        "launches": launches + bfs_routes["simt"] + spmv13["launches"],
         "launches_by_path": {f"pr bench rmat{MAIN_SCALE}": launches,
                              f"bfs bench rmat{MAIN_SCALE}":
-                             bfs_routes["simt"]},
+                             bfs_routes["simt"],
+                             f"spmv bench rmat{MAIN_SCALE}":
+                             spmv13["launches"]},
         "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
         "plain_ms": ms["dense_plain"],

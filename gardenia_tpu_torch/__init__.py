@@ -25,6 +25,13 @@ Slice 6 is BFS, multi-source BFS and Brandes BC (and PR's push and delta):
   bc_solver) -> ops/bsr.spmv_hybrid_batched (ops/panel K1 on tensor cores
   for S > 8 + a row gather and segment sum, ops/spmv.spmv_batched)
   -> cli / bench.
+Then SpMV, SSSP, MST, SCC, clustering and random walks:
+  solvers/spmv (ell, hybrid = the threshold-64 relabelled layout through
+  ops/bsr.spmv_hybrid and K1 at S = 1, segment, push_pb = ops/spmv.
+  make_push_pb), solvers/sssp and sssp_nf (host-driven rounds over
+  ops/frontier and the weighted in-ELL's min-plus spmv_ell), solvers/
+  mst, scc, clustering, sampling (scatter_reduce_ hooks and closures,
+  ops/pointer_jump) -> cli / bench.
 """
 
 from __future__ import annotations

@@ -30,12 +30,31 @@ repo's bench.py:
        of bc_batched from sources 0..127 (Brandes walks every edge forward
        and backward), best of 2 after one warm-up; vs 5 GTEPS; the same
        details.
+  spmv — `spmv_gflops_rmat{scale}`: 2 x edges / the time of one apply, over
+       a power loop of 8 hybrid applies (each normalized by max|y|), best
+       of 3 after one warm-up; the layout is the PR layout (relabelled,
+       threshold 16, int8 counts) with scale 0.2, the uniform values of
+       the reference's src/spmv/main.cc; vs 55 GFLOP/s;
+       detail.ms_per_apply, reps, and K1's launches over the 4 solves.
+  sssp — `sssp_nf_gteps_grid{side}`: edges / solve time of near-far
+       delta-stepping (delta 1024) from vertex 0 on the symmetrized
+       weighted side x side grid, side = 2^(scale // 2), best of 2 after
+       one warm-up; vs 1 GTEPS; detail.rounds.
+  mst — `mst_boruvka_ms_rmat{scale}`: ms of Boruvka on the R-MAT graph
+       with the integer weights (lo * 2654435761 + hi * 40503) % 97 + 1 of
+       each unordered pair, best of 2 after one warm-up; vs_baseline = 2.0
+       ms per M edges / the measured ms per M edges; detail.weight.
+  scc — `scc_ms_rmat{scale}d`: ms of the 'color' SCC on the DIRECTED R-MAT
+       graph (a symmetrized one degenerates to CC), best of 2 after one
+       warm-up; vs_baseline = 1.0 ms per M edges / the measured; detail.
+       sccs and rounds.
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
 must not round to 0.
 
-Run: python -m gardenia_tpu_torch.bench [--kernel {pr,tc,cc,bfs,msbfs,bc}]
+Run: python -m gardenia_tpu_torch.bench
+         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc}]
                                         [--scale 20] [--device cuda]
 """
 
@@ -55,17 +74,31 @@ BASELINE_TC_MEPS = 2000.0
 BASELINE_CC_MS_PER_MEDGE = 1.0
 BASELINE_BFS_GTEPS = 30.0
 BASELINE_BC_GTEPS = 5.0
+BASELINE_SPMV_GFLOPS = 55.0
+BASELINE_SSSP_GTEPS = 1.0
+BASELINE_MST_MS_PER_MEDGE = 2.0
+BASELINE_SCC_MS_PER_MEDGE = 1.0
+SPMV_REPS = 8             # applies a timed SpMV solve, as bench.py:142
+SSSP_DELTA = 1024         # bench.py:335-369
 SOURCES = 128             # msbfs and bc: sources 0..127, as bench.py takes
 BC_WARMUP, BC_ITERS = 1, 2
 # pr and cc: untimed solves (layout build, upload), then timed solves
 WARMUP, ITERS = 1, 3
-TC_WARMUP, TC_ITERS = 1, 2    # tc: the same, as bench.py:253-263
+TC_WARMUP, TC_ITERS = 1, 2    # tc, sssp, mst, scc: as bench.py does
 
 
 def get_graph(scale: int):
     """Symmetrized Graph500 R-MAT graph of 2^scale vertices, degree 16."""
     from gardenia_tpu_torch.core.generate import generate_graph
     return generate_graph("rmat", scale=scale, degree=16, symmetrize=True)
+
+
+def get_graph_directed(scale: int):
+    """Directed Graph500 R-MAT graph of 2^scale vertices, degree 16, with
+    its reverse view (bench.py:58)."""
+    from gardenia_tpu_torch.core.generate import generate_graph
+    return generate_graph("rmat", scale=scale, degree=16, symmetrize=False,
+                          need_reverse=True)
 
 
 def device_name(device: torch.device) -> str:
@@ -215,8 +248,130 @@ def bench_bc(scale: int, device="cuda", g=None, sources: int = SOURCES):
     return record, g, res
 
 
+def spmv_applies(g, device, reps: int = SPMV_REPS) -> torch.Tensor:
+    """The SpMV bench's solve: a power loop of `reps` hybrid applies, each
+    normalized by max|y|, from x = 0.3, on the PR layout with scale 0.2 —
+    the reference's uniform 0.2 values (src/spmv/main.cc) factor into its
+    int8 count panels, so no second layout is built (bench.py:155-166)."""
+    import dataclasses
+    from gardenia_tpu_torch.core import views
+    from gardenia_tpu_torch.ops.bsr import spmv_hybrid
+    g2, hyb, _ = views.relabeled_hybrid(g, device)
+    hyb = dataclasses.replace(hyb, scale=0.2)
+    x = torch.full((g2.n,), 0.3, dtype=torch.float32, device=device)
+    for _ in range(reps):
+        y = spmv_hybrid(hyb, x, num_rows=g2.m)
+        x = y / y.abs().max().clamp(min=1e-30)
+    return x
+
+
+def bench_spmv(scale: int, device="cuda", g=None, reps: int = SPMV_REPS):
+    """(record, graph, last normalized y) of the SpMV benchmark
+    (bench.py:142-183), in GFLOP/s of one apply."""
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = dict(panel.LAUNCHES)
+    y, secs = time_op(lambda: spmv_applies(g, dev, reps), warmup=WARMUP,
+                      iters=ITERS, device=dev)
+    per = secs / reps
+    gflops = 2 * g.nnz / per / 1e9
+    record = {"metric": f"spmv_gflops_rmat{scale}", "value": gflops,
+              "unit": "GFLOP/s", "vs_baseline": gflops / BASELINE_SPMV_GFLOPS,
+              "detail": {"ms_per_apply": per * 1e3, "reps": reps,
+                         "nnz": g.nnz, "m": g.m, "device": device_name(dev),
+                         **_k1_launches(before)}}
+    return record, g, y
+
+
+def sssp_graph(scale: int):
+    """The SSSP benchmark's graph: the symmetrized grid of side
+    2^(scale // 2), with its reverse CSR (bench.py:335-369)."""
+    from gardenia_tpu_torch.core.generate import grid_edges
+    from gardenia_tpu_torch.core.graph import from_edges
+    return from_edges(grid_edges(1 << (scale // 2)), symmetrize=True,
+                      need_reverse=True)
+
+
+def bench_sssp(scale: int, device="cuda"):
+    """(record, graph, last SSSPResult) of the SSSP benchmark
+    (bench.py:335-369): near-far delta-stepping on the weighted grid, the
+    road-network stand-in; side = 2^(scale // 2)."""
+    from gardenia_tpu_torch.solvers.sssp import sssp_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    side = 1 << (scale // 2)
+    g = sssp_graph(scale)
+    res, secs = time_op(lambda: sssp_solver(g, 0, SSSP_DELTA,
+                                            variant="nearfar", device=dev),
+                        warmup=TC_WARMUP, iters=TC_ITERS, device=dev)
+    gteps = g.nnz / secs / 1e9
+    record = {"metric": f"sssp_nf_gteps_grid{side}", "value": gteps,
+              "unit": "GTEPS", "vs_baseline": gteps / BASELINE_SSSP_GTEPS,
+              "detail": {"rounds": res.iterations, "ms": secs * 1e3,
+                         "nnz": g.nnz, "m": g.m, "delta": SSSP_DELTA,
+                         "device": device_name(dev)}}
+    return record, g, res
+
+
+def mst_graph(g):
+    """g with the integer weights of bench.py:473-497: w(u, v) = w(v, u) =
+    (lo * 2654435761 + hi * 40503) % 97 + 1 for the pair's ids lo < hi."""
+    import numpy as np
+    from gardenia_tpu_torch.core.graph import Graph
+    src = np.repeat(np.arange(g.m, dtype=np.int64), np.diff(g.rowptr))
+    dst = np.asarray(g.colidx, np.int64)
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    w = ((lo * 2654435761 + hi * 40503) % 97 + 1).astype(np.float64)
+    return Graph(g.rowptr, g.colidx, w, num_cols=g.n, symmetric=True)
+
+
+def bench_mst(scale: int, device="cuda", g=None):
+    """(record, weighted graph, last MSTResult) of the MST benchmark
+    (bench.py:473-497); g, when given, is the graph get_graph(scale)
+    returns."""
+    from gardenia_tpu_torch.solvers.mst import mst_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    gw = mst_graph(get_graph(scale) if g is None else g)
+    res, secs = time_op(lambda: mst_solver(gw, device=dev),
+                        warmup=TC_WARMUP, iters=TC_ITERS, device=dev)
+    ms_per_medge = secs * 1e3 / (gw.nnz / 1e6)
+    record = {"metric": f"mst_boruvka_ms_rmat{scale}", "value": secs * 1e3,
+              "unit": "ms",
+              "vs_baseline": BASELINE_MST_MS_PER_MEDGE / ms_per_medge,
+              "detail": {"weight": res.total_weight,
+                         "tree_edges": int(res.edge_mask.sum()),
+                         "nnz": gw.nnz, "m": gw.m,
+                         "device": device_name(dev)}}
+    return record, gw, res
+
+
+def bench_scc(scale: int, device="cuda", g=None):
+    """(record, directed graph, last SCCResult) of the SCC benchmark
+    (bench.py:456-470); g, when given, is get_graph_directed(scale)."""
+    import numpy as np
+    from gardenia_tpu_torch.solvers.scc import scc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph_directed(scale)
+    res, secs = time_op(lambda: scc_solver(g, device=dev),
+                        warmup=TC_WARMUP, iters=TC_ITERS, device=dev)
+    ms_per_medge = secs * 1e3 / (g.nnz / 1e6)
+    record = {"metric": f"scc_ms_rmat{scale}d", "value": secs * 1e3,
+              "unit": "ms",
+              "vs_baseline": BASELINE_SCC_MS_PER_MEDGE / ms_per_medge,
+              "detail": {"sccs": len(np.unique(res.scc_root.cpu().numpy())),
+                         "rounds": res.iterations, "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev)}}
+    return record, g, res
+
+
 KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
-           "msbfs": bench_msbfs, "bc": bench_bc}
+           "msbfs": bench_msbfs, "bc": bench_bc, "spmv": bench_spmv,
+           "sssp": bench_sssp, "mst": bench_mst, "scc": bench_scc}
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
-"""Benchmark CLI of the port — the `pr`, `tc`, `cc`, `bfs` and `bc`
-kernels, with the positional argv of gardenia_tpu/cli.py:
+"""Benchmark CLI of the port — the `pr`, `spmv`, `bfs`, `sssp`, `cc`, `bc`,
+`tc`, `scc` and `mst` kernels, with the positional argv of
+gardenia_tpu/cli.py:
 
   python -m gardenia_tpu_torch.cli <kernel> <filetype> <graph-prefix|scale>
                                    [symmetrize] [kernel args...]
@@ -12,6 +13,10 @@ e.g.
   python -m gardenia_tpu_torch.cli cc rmat 20 --variant=afforest
   python -m gardenia_tpu_torch.cli bfs rmat 20 1 0 5 --variant=do_fused
   python -m gardenia_tpu_torch.cli bc rmat 20
+  python -m gardenia_tpu_torch.cli spmv rmat 20 1 --variant=hybrid
+  python -m gardenia_tpu_torch.cli sssp rmat 20 1 0 0 64 --variant=nearfar
+  python -m gardenia_tpu_torch.cli scc rmat 20 --variant=wcc
+  python -m gardenia_tpu_torch.cli mst rmat 20
 
 Flags may stand anywhere among the positionals, as in the reference's CLI
 (`--device cpu` in two words is taken too); an unknown flag prints a
@@ -24,10 +29,13 @@ the kernel's own lines (pr: the error trace, 'runtime [<variant>] = X
 ms.', 'GTEPS = ...'; tc: 'runtime [<variant>] = X sec',
 'total_num_triangles = N'; cc: 'runtime [<variant>] = X ms.',
 'num_components = N'; bfs and bc: 'iterations = N.', 'runtime [<variant>]
-= X ms.', bfs also 'GTEPS = ...') and the serial oracle's
-'Correct'/'Wrong'.  bfs takes [symmetrize] [reverse] [source] and bc the
-same after the graph (src/bfs/main.cc:8-19).  `main` returns 1 on
-'Wrong'.
+= X ms.', bfs also 'GTEPS = ...'; spmv: 'runtime [<variant>] = X ms (
+G GFLOP/s B GB/s)'; sssp: 'iterations = N.' and the runtime; scc:
+the runtime and 'number of SCCs = N'; mst: the runtime and 'MST weight =
+W') and the serial oracle's 'Correct'/'Wrong'.  bfs takes [symmetrize]
+[reverse] [source] and bc the same after the graph (src/bfs/main.cc:
+8-19); sssp takes [symmetrize] [reverse] [source] [delta].  `main`
+returns 1 on 'Wrong'.
 """
 
 from __future__ import annotations
@@ -37,9 +45,9 @@ import sys
 import numpy as np
 
 from gardenia_tpu_torch.core.graph import load_graph
-from gardenia_tpu_torch.verify import check, oracles
+from gardenia_tpu_torch.verify import check, maximum_relative_error, oracles
 from gardenia_tpu_torch import resolve_device
-from gardenia_tpu_torch.utils.report import gteps, report_runtime
+from gardenia_tpu_torch.utils.report import gteps, report_runtime, spmv_bytes
 from gardenia_tpu_torch.utils.timer import time_op
 
 
@@ -158,8 +166,79 @@ def run_bc(args, device, variant="base") -> bool:
                           oracles.bc_serial(g, source)))
 
 
-KERNELS = {"pr": run_pr, "tc": run_tc, "cc": run_cc, "bfs": run_bfs,
-           "bc": run_bc}
+def run_spmv(args, device, variant="ell") -> bool:
+    """spmv <filetype> <graph> [symmetrize]: y = A x with the graph's
+    weights, or 0.2 where it has none, and x = 0.3, against the serial
+    product within sqrt(eps) of f32 (max relative error)."""
+    print("Sparse Matrix-Vector Multiplication by gardenia_tpu_torch")
+    g, _ = _load(args)
+    from gardenia_tpu_torch.solvers.spmv import spmv_solver
+    Ax = np.full(g.nnz, 0.2, np.float32) if g.weights is None \
+        else np.asarray(g.weights, np.float32)
+    x = np.full(g.n, 0.3, np.float32)
+    y, secs = time_op(lambda: spmv_solver(g, Ax, x, variant=variant,
+                                          device=device), device=device)
+    gf = (2 * g.nnz / secs) / 1e9 if secs else 0
+    gb = spmv_bytes(g.m, g.nnz) / secs / 1e9 if secs else 0
+    report_runtime(variant, secs, gflops=gf, gbytes=gb)
+    err = maximum_relative_error(y.cpu().numpy(),
+                                 oracles.spmv_serial(g, Ax, x))
+    return check(err < np.sqrt(np.finfo(np.float32).eps),
+                 f"(max rel err {err})")
+
+
+def run_sssp(args, device, variant="delta") -> bool:
+    """sssp <filetype> <graph> [symmetrize] [reverse] [source] [delta]:
+    distances equal to the serial Dijkstra's."""
+    print("Single Source Shortest Path by gardenia_tpu_torch")
+    g, rest = _load(args, need_reverse=True)
+    source = int(rest[1]) if len(rest) > 1 else 0
+    delta = int(rest[2]) if len(rest) > 2 else 1
+    from gardenia_tpu_torch.solvers.sssp import sssp_solver
+    res, secs = time_op(lambda: sssp_solver(g, source, delta,
+                                            variant=variant, device=device),
+                        device=device)
+    print(f"\titerations = {res.iterations}.")
+    report_runtime(variant, secs)
+    expect = oracles.sssp_serial(g, source)
+    return check(bool((res.dist.cpu().numpy() == expect).all()))
+
+
+def run_scc(args, device, variant="color") -> bool:
+    """scc <filetype> <graph> [symmetrize]: --variant=color (max-id FB
+    colouring, base.cu) or --variant=wcc (WCC-first, wcc.cu /
+    two_phase.cu); the components a bijection of the serial Tarjan's."""
+    print("Strongly Connected Components by gardenia_tpu_torch")
+    g, _ = _load(args)
+    from gardenia_tpu_torch.solvers.scc import scc_solver
+    res, secs = time_op(lambda: scc_solver(g, variant=variant,
+                                           device=device), device=device)
+    report_runtime(variant, secs)
+    root = res.scc_root.cpu().numpy()
+    print(f"number of SCCs = {len(np.unique(root))}")
+    return check(same_components(root, oracles.scc_serial(g)))
+
+
+def run_mst(args, device, variant="boruvka") -> bool:
+    """mst <filetype> <graph>: symmetrizes by default; the tree weight
+    within 1e-3 relative of Kruskal's."""
+    if variant != "boruvka":
+        raise ValueError(f"unknown mst variant {variant!r} (only "
+                         f"'boruvka')")
+    print("Minimum Spanning Tree by gardenia_tpu_torch")
+    g, _ = _load(args, symmetrize_default=True)
+    from gardenia_tpu_torch.solvers.mst import mst_solver
+    res, secs = time_op(lambda: mst_solver(g, device=device), device=device)
+    report_runtime(variant, secs)
+    print(f"MST weight = {res.total_weight}")
+    expect = oracles.mst_total_weight(g)
+    return check(abs(res.total_weight - expect) < 1e-3 * max(1.0, expect),
+                 f"(expected {expect})")
+
+
+KERNELS = {"pr": run_pr, "spmv": run_spmv, "bfs": run_bfs,
+           "sssp": run_sssp, "cc": run_cc, "bc": run_bc, "tc": run_tc,
+           "scc": run_scc, "mst": run_mst}
 
 
 def main(argv=None) -> int:

@@ -67,13 +67,33 @@ def coo_sorted(g, device, reverse: bool = False):
     return g._dev(_key("coo_sorted", device, _dir(g, reverse)), mk)
 
 
-def ell(g, device, reverse: bool = False):
-    """Unweighted ELL slab matrix of g (of its transpose when reverse)."""
+def edge_weights(g, device, dtype=torch.float32) -> torch.Tensor:
+    """g's edge weights in CSR order as f32, then as `dtype` (an integer
+    dtype truncates, as numpy's astype does); all ones when g is
+    unweighted."""
+    def mk():
+        w = (np.ones(g.nnz, np.float32) if g.weights is None
+             else np.asarray(g.weights, np.float32))
+        return torch.from_numpy(w).to(device=device, dtype=dtype)
+    return g._dev(_key("weights", device, str(dtype)), mk)
+
+
+def ell(g, device, reverse: bool = False, weighted: bool = False):
+    """ELL slab matrix of g (of its transpose when reverse); with
+    `weighted`, its values are g's weights (ones when g has none), as the
+    reference's Graph.ell(weighted=True) builds it (graph.py:161-176)."""
     def mk():
         from gardenia_tpu_torch.ops.ell import build_ell
         rp, ci = _csr_arrays(g, reverse)
-        return build_ell(rp, ci, None, num_cols=g.n).to(device)
-    return g._dev(_key("ell", device, _dir(g, reverse)), mk)
+        w = None
+        if weighted:
+            w = g.in_weights if reverse else g.weights
+            w = (np.ones(len(ci), np.float32) if w is None
+                 else np.asarray(w, np.float32))
+        return build_ell(rp, ci, w, num_cols=g.n).to(device)
+    # the unweighted views keep the key they have always had
+    options = ("weighted",) if weighted else ()
+    return g._dev(_key("ell", device, _dir(g, reverse), *options), mk)
 
 
 def hybrid(g, device, reverse: bool = False):
@@ -105,6 +125,7 @@ def relabel_maps(g, device):
 def relabeled_hybrid(g, device, reverse: bool = True):
     """(relabelled graph, its hybrid matrix, new_of_old tensor) — the
     degree-relabelled layout that the pull sweeps run on: the reverse
-    (in-edge) matrix by default, the forward one for BC's backward pass."""
+    (in-edge) matrix by default, the forward one for BC's backward pass
+    and the SpMV bench."""
     g2, new_of_old, _ = relabel_maps(g, device)
     return g2, hybrid(g2, device, reverse=reverse), new_of_old

@@ -1,6 +1,7 @@
 """Generalized SpMV (torch counterpart of gardenia_tpu/ops/spmv.py):
 `spmv_ell` over the ELL slab layout, `spmv_segment` over COO edges (the
-push direction), `spmv_batched` for S operand vectors at once.
+push direction), `spmv_batched` for S operand vectors at once, and
+`make_push_pb`, the propagation-blocking push (the transpose product).
 
 Plain torch: per slab, gather x along the (W, R) column tile with a pad
 slot at index n, combine with the semiring, reduce across W, and scatter
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gardenia_tpu_torch.ops.ell import EllMatrix
@@ -106,3 +108,32 @@ def spmv_segment(row_ids: torch.Tensor, col_ids: torch.Tensor,
     else:
         y = init.to(dt)
     return semiring.scatter_into(y, row_ids, prod)
+
+
+def make_push_pb(g, weights=None, *, device):
+    """Propagation-blocking push SpMV (reference include/prop_blocking.h,
+    src/pr/pb.cc; gardenia_tpu/ops/spmv.py:105-143): fn(x) -> y with
+    y[i] = sum_j A[j, i] x[j], the transpose product, f32[g.n].
+
+    Where each source-ordered edge product lands in destination order is
+    a static permutation, argsort(dst, kind="stable"), computed once on
+    the host; the accumulation is a sorted segment sum over the
+    destination offsets (spmv_batched with one column).  Applying the
+    permutation to the gather indices and the weights once, at set-up,
+    gives the products in the order that binning them would.  weights:
+    edge values in forward-CSR order, or None (ones)."""
+    from gardenia_tpu_torch.core import build
+
+    src, dst = build.csr_to_coo(g.rowptr, g.colidx)
+    order = np.argsort(dst, kind="stable")
+    dst_sorted = torch.from_numpy(dst[order].astype(np.int32)).to(device)
+    src_binned = torch.from_numpy(src[order].astype(np.int32)).to(device)
+    vals = None if weights is None else torch.from_numpy(
+        np.asarray(weights, np.float32)[order]).to(device)
+    offsets = row_offsets(dst_sorted, g.n)
+
+    def push(x: torch.Tensor) -> torch.Tensor:
+        return spmv_batched(dst_sorted, src_binned, x.float()[:, None],
+                            num_rows=g.n, offsets=offsets, vals=vals)[:, 0]
+
+    return push

@@ -1,15 +1,19 @@
 """Where a solve's device time goes, by torch.profiler on a CUDA card.
 
     python -m gardenia_tpu_torch.profile_solve
-        [--kernel {pr,tc,cc,bfs,msbfs,bc}]
+        [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst}]
         [--graph {rmat,uniform}] [--scale 20] [--solves 3]
         [--trace chiprun_out/trace.json]
 
 On the bench's graph (bench.get_graph; `--graph uniform`: the uniform
 random graph of the same scale and degree, on which cc_sv takes a dense
-round), with the bench's solver (cc: cc_sv; bfs: bfs_do_fused from the
-vertex of highest degree; msbfs and bc: sources 0..127): one untraced
-solve that
+round; sssp: the bench's weighted grid of side 2^(scale // 2); scc: the
+directed R-MAT graph; mst: the R-MAT graph with the bench's hash
+weights), with the bench's solver (cc: cc_sv; bfs:
+bfs_do_fused from the vertex of highest degree; msbfs and bc: sources
+0..127; spmv: the bench's 8 hybrid applies on the PR layout with scale
+0.2; sssp: nearfar from vertex 0 with delta 1024; scc: 'color'): one
+untraced solve that
 builds and uploads (layout or TC prep), then `--solves` untraced solves
 timed on the host clock after cuda.synchronize, then `--solves` solves
 under torch.profiler.  It prints nvidia-smi's name and power limit, the
@@ -51,15 +55,45 @@ def solver(kernel: str, g):
         from gardenia_tpu_torch.bench import SOURCES
         from gardenia_tpu_torch.solvers.bc import bc_batched
         return partial(bc_batched, sources=np.arange(SOURCES))
+    if kernel == "spmv":
+        from gardenia_tpu_torch.bench import spmv_applies
+        return spmv_applies
+    if kernel == "sssp":
+        from gardenia_tpu_torch.bench import SSSP_DELTA
+        from gardenia_tpu_torch.solvers.sssp import sssp_solver
+        return partial(sssp_solver, source=0, delta=SSSP_DELTA,
+                       variant="nearfar")
+    if kernel == "scc":
+        from gardenia_tpu_torch.solvers.scc import scc_solver
+        return scc_solver
+    if kernel == "mst":
+        from gardenia_tpu_torch.solvers.mst import mst_solver
+        return mst_solver
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
+
+
+def bench_graph(kernel: str, kind: str, scale: int):
+    """The graph the bench runs `kernel` on (kind: rmat or uniform)."""
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core.generate import generate_graph
+    if kernel == "sssp":
+        return bench.sssp_graph(scale)
+    if kernel == "scc":
+        return bench.get_graph_directed(scale)
+    if kernel == "mst":
+        return bench.mst_graph(bench.get_graph(scale))
+    return (bench.get_graph(scale) if kind == "rmat" else
+            generate_graph("uniform", scale=scale, degree=16,
+                           symmetrize=True))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m gardenia_tpu_torch."
                                       "profile_solve")
     ap.add_argument("--kernel", default="tc",
-                    choices=["pr", "tc", "cc", "bfs", "msbfs", "bc"])
+                    choices=["pr", "tc", "cc", "bfs", "msbfs", "bc", "spmv",
+                             "sssp", "scc", "mst"])
     ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)
@@ -69,15 +103,11 @@ def main(argv=None):
         sys.exit("profile_solve: needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from gardenia_tpu_torch.bench import get_graph
-    from gardenia_tpu_torch.core.generate import generate_graph
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    g = (get_graph(args.scale) if args.graph == "rmat" else
-         generate_graph("uniform", scale=args.scale, degree=16,
-                        symmetrize=True))
+    g = bench_graph(args.kernel, args.graph, args.scale)
     solve = solver(args.kernel, g)
     t0 = time.perf_counter()
     solve(g, device=dev)

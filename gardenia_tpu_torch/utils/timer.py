@@ -21,7 +21,7 @@ def _sync(device) -> None:
 
 
 class Timer:
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.device = device
         self._start = 0.0
         self.seconds = 0.0
@@ -39,10 +39,12 @@ class Timer:
         return self.seconds * 1e3
 
 
-def time_op(fn: Callable[[], Any], *, warmup: int = 1, iters: int = 1,
-            device="cpu") -> Tuple[Any, float]:
+def time_op(fn: Callable[[], Any], *, device, warmup: int = 1,
+            iters: int = 1) -> Tuple[Any, float]:
     """Run fn `warmup` times untimed, then `iters` timed; return
-    (last result, best seconds)."""
+    (last result, best seconds).  `device` is the one fn solves on, and
+    has no default: a CUDA solve timed without its synchronize would
+    measure the enqueue."""
     result = None
     for _ in range(max(0, warmup)):
         result = fn()

@@ -37,6 +37,11 @@ for name in names:
     importlib.import_module(name)
 assert {"gardenia_tpu_torch.cli", "gardenia_tpu_torch.solvers.cc",
         "gardenia_tpu_torch.solvers.bfs", "gardenia_tpu_torch.solvers.bc",
+        "gardenia_tpu_torch.solvers.spmv", "gardenia_tpu_torch.solvers.sssp",
+        "gardenia_tpu_torch.solvers.sssp_nf", "gardenia_tpu_torch.solvers.mst",
+        "gardenia_tpu_torch.solvers.scc",
+        "gardenia_tpu_torch.solvers.clustering",
+        "gardenia_tpu_torch.solvers.sampling",
         "gardenia_tpu_torch.core.graph", "gardenia_tpu_torch.native",
         "gardenia_tpu_torch.verify.oracles"} <= set(names), names
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
@@ -248,3 +253,107 @@ def test_bench_bfs_msbfs_bc_cpu_print_one_json_line(kernel, metric, unit_per):
     assert d["k1_launches"] == 0 == d["k1_tc_launches"]   # CPU: plain only
     if kernel != "bfs":
         assert d["sources"] == 128
+
+
+# --- spmv, sssp, scc, mst --------------------------------------------------
+
+@pytest.mark.parametrize("words,variant,lines_of", [
+    (("spmv", "rmat", "10"), "ell", "spmv"),
+    (("spmv", "rmat", "10", "1", "--variant=hybrid"), "hybrid", "spmv"),
+    (("spmv", "--variant=segment", "rmat", "10"), "segment", "spmv"),
+    (("spmv", "rmat", "10", "1", "--variant=push_pb"), "push_pb", "spmv"),
+    (("sssp", "rmat", "10", "1", "0", "0", "8", "--variant=nearfar"),
+     "nearfar", "sssp"),
+    (("sssp", "rmat", "10", "--variant=bf"), "bf", "sssp"),
+    (("sssp", "rmat", "10", "1", "0", "3", "16"), "delta", "sssp"),
+    (("sssp", "--variant=hybrid", "rmat", "10", "1", "0", "0", "4"),
+     "hybrid", "sssp"),
+    (("scc", "rmat", "10"), "color", "scc"),
+    (("scc", "rmat", "10", "--variant=wcc"), "wcc", "scc"),
+    (("mst", "rmat", "10"), "boruvka", "mst")])
+def test_cli_spmv_sssp_scc_mst_contract_lines(words, variant, lines_of):
+    """spmv, sssp, scc and mst print the reference's lines and end
+    Correct on the CPU, with --variant= anywhere.  (push_pb is the
+    transpose product: it runs on the symmetrized graph, where it equals
+    the forward one.)"""
+    proc, lines = _cli(*words, "--device=cpu")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    title = {"spmv": "Sparse Matrix-Vector Multiplication",
+             "sssp": "Single Source Shortest Path",
+             "scc": "Strongly Connected Components",
+             "mst": "Minimum Spanning Tree"}[lines_of]
+    assert lines[0] == f"{title} by gardenia_tpu_torch"
+    assert lines[1].startswith("|V| 1024 |E| ")
+    runtime = [ln for ln in lines if ln.startswith(f"\truntime [{variant}] = ")]
+    assert len(runtime) == 1
+    if lines_of == "spmv":
+        assert runtime[0].endswith(" GB/s)") and "GFLOP/s" in runtime[0]
+    else:
+        assert runtime[0].endswith(" ms.")
+    if lines_of == "sssp":
+        assert any(ln.startswith("\titerations = ") for ln in lines)
+    if lines_of == "scc":
+        assert any(ln.startswith("number of SCCs = ") for ln in lines)
+    if lines_of == "mst":
+        assert any(ln.startswith("MST weight = ") for ln in lines)
+    assert lines[-1] == "Correct"
+
+
+@pytest.mark.parametrize("words,message", [
+    (("spmv", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown SpMV variant 'nope'"),
+    (("sssp", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown SSSP variant 'nope'"),
+    (("scc", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown SCC variant 'nope'"),
+    (("mst", "rmat", "10", "--variant=nope", "--device=cpu"),
+     "unknown mst variant 'nope'")])
+def test_cli_spmv_sssp_scc_mst_refuse_unknown_variants(words, message):
+    proc, lines = _cli(*words)
+    assert proc.returncode == 1
+    assert any(message in ln for ln in lines), proc.stdout
+    assert "Correct" not in lines
+
+
+@pytest.mark.parametrize("kernel,metric,unit", [
+    ("spmv", "spmv_gflops_rmat10", "GFLOP/s"),
+    ("sssp", "sssp_nf_gteps_grid32", "GTEPS"),
+    ("mst", "mst_boruvka_ms_rmat10", "ms"),
+    ("scc", "scc_ms_rmat10d", "ms")])
+def test_bench_spmv_sssp_mst_scc_cpu_print_one_json_line(kernel, metric, unit):
+    """One JSON line with the reference's metric name and formula."""
+    proc = _run(["-m", "gardenia_tpu_torch.bench", "--kernel", kernel,
+                 "--scale", "10", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    assert rec["metric"] == metric and rec["unit"] == unit
+    assert rec["value"] > 0 and d["device"] == "cpu"
+    if kernel == "spmv":
+        assert abs(rec["value"] - 2 * d["nnz"] / d["ms_per_apply"] / 1e6) \
+            < 1e-9 * rec["value"]
+        assert rec["vs_baseline"] == rec["value"] / 55.0
+        assert d["reps"] == 8 and d["k1_launches"] == 0   # CPU: plain K1
+    elif kernel == "sssp":
+        assert d["m"] == 1024 and d["nnz"] == 3968 and d["rounds"] > 1
+        assert abs(rec["value"] - d["nnz"] / d["ms"] / 1e6) \
+            < 1e-9 * rec["value"]
+    else:
+        per = {"mst": 2.0, "scc": 1.0}[kernel]
+        assert rec["vs_baseline"] == per / (rec["value"] / (d["nnz"] / 1e6))
+        assert (d["weight"] > 0) if kernel == "mst" else (
+            d["sccs"] > 1 and d["rounds"] >= 1)
+
+
+def test_timer_needs_its_device():
+    """time_op and Timer have no default device: a CUDA solve timed
+    without its synchronize would measure the enqueue."""
+    from gardenia_tpu_torch.utils.timer import Timer, time_op
+    with pytest.raises(TypeError):
+        time_op(lambda: None)
+    with pytest.raises(TypeError):
+        Timer()
+    result, secs = time_op(lambda: 7, device="cpu", warmup=0, iters=2)
+    assert result == 7 and secs >= 0
