@@ -122,7 +122,30 @@ result:
      strong components; cluster_threshold (unweighted, and weighted at
      threshold 128) against scipy's components and random_walks (every
      step an out-edge or a sink staying put, the seed repeating the
-     walks) at R-MAT-16.
+     walks) at R-MAT-16;
+  16. vertex colouring: kernel V1 (the core pass's sequential first-fit)
+     against its plain loop, exactly, on hand-made cases (K = 1, a
+     saturated row with C = 4, an empty adjacency, cliques wider and
+     narrower than the palette, C = 20 and 16384), on the R-MAT-16 core
+     (the whole graph, K = 65,536), the first core pass of R-MAT-20's
+     first solve (C 128, rows saturating) and the core pass of the
+     R-MAT-20 bench's last solve (at the palette the graph remembers);
+     vc_solver at R-MAT-16 and R-MAT-20 held to vc_check, and at R-MAT-16
+     to the whole solve with the plain loop in place of V1 (colours and
+     rounds equal) and, with the tiers forced (VC_FORCED_TIERS), to the
+     same solve on the CPU; the port's bench (--kernel vc) at R-MAT-20
+     with V1's launches set to 0 before and read after, rounds by tier,
+     palette and peak device memory; V1's ms on the bench's core and the
+     R-MAT-16 core beside its plain loop's, its bytes bound and the same
+     kernel's K empty steps (the floor of its dependent steps);
+  17. SymGS at R-MAT-16 against the serial sweep; the bench (--kernel
+     symgs) at R-MAT-20 against an independent float64 sweep of scipy's
+     colour-ordered CSR; each within the CLI's l2 < 1e-4 and an f32
+     sweep's 1e-10 (SYMGS_F64_L2), on colours held proper by vc_check;
+  18. SGD at R-MAT-16, 4 epochs, trace and factors against a float64
+     numpy/scipy replica of the epoch; the bench (--kernel sgd) at
+     R-MAT-20, 10 epochs, its trace finite and monotone, its final RMSE
+     beside the TPU record's.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -182,6 +205,29 @@ TC_KERNELS = {
     "bitmap_count": ("H1", "gardenia_tpu_torch/csrc/tc_bitmap_count.cu",
                      "gardenia_tpu/solvers/tc.py:351"),
 }
+# V1, the core pass's sequential first-fit of VC: an XLA loop of the JAX
+# package (no Pallas kernel), a CUDA kernel of the port
+V1_SOURCE = "gardenia_tpu_torch/csrc/vc_core_firstfit.cu"
+V1_REPLACES = "gardenia_tpu/solvers/vc.py:268"
+# (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
+# default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
+# 3 sparse and a core pass of 468 (counted on the CPU)
+VC_FORCED_TIERS = (((1 << 14, 1 << 17), 0), ((1 << 15, 1 << 19), 512))
+# SymGS against its f64 references: beside the CLI's l2 < 1e-4 (a squared
+# ratio, so 1% relative), a limit that an f32 sweep meets and a bf16 one
+# (some 1e-5) does not; measured 1.1e-16 at R-MAT-16 and 7.8e-17 at
+# R-MAT-20 on an H100 80GB HBM3 at 700 W
+SYMGS_F64_L2 = 1e-10
+# SGD at R-MAT-16 against its f64 replica: 4 epochs; the limits sit above
+# f32 rounding (on the CPU the port's f32 epoch differs from the replica
+# by 8e-8 in the trace and 6e-6 in the factors, relative to their max),
+# which a card's atomics add in no fixed order
+SGD_SMOKE_EPOCHS = 4
+SGD_TRACE_REL = 1e-5
+SGD_FACTOR_REL = 1e-4
+# the JAX package's final RMSE of the same bench on the TPU
+# (BENCH_SWEEP_r3.jsonl), printed beside the port's for comparison only
+SGD_TPU_FINAL_RMSE = 1.28286874294281
 # the JAX package's count on the bench's R-MAT-20 graph, in three rounds
 # (BENCH_SWEEP_r2.jsonl:7, BENCH_SWEEP_r3.jsonl:6, BENCH_SWEEP_r5.jsonl:6)
 TC_RMAT20_TRIANGLES = 424_573_866
@@ -1055,6 +1101,383 @@ def mst_scc_phase(dev, gpu: str, g) -> None:
         fail("random_walks left the graph or its seed")
 
 
+def timed_once(fn):
+    """(fn(), device ms of that one call by CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def v1_bytes(forb, rowptr, col) -> int:
+    """What V1's inputs and output need: the forbidden table, the CSR and
+    chosen, each once."""
+    K = forb.shape[0]
+    return forb.numel() + 8 * rowptr.numel() + 4 * col.numel() + 4 * K
+
+
+def v1_hand_cases(dev):
+    """(label, forb, rowptr, col) edge cases of V1, on dev."""
+    import torch
+    from gardenia_tpu_torch.ops.vc_core import core_csr
+    rng = np.random.default_rng(16)
+
+    def case(label, forb, adj=None):
+        K = forb.shape[0]
+        i, j = (np.nonzero(adj) if adj is not None
+                else (np.zeros(0, np.int64),) * 2)
+        rowptr, col = core_csr(torch.from_numpy(np.asarray(i, np.int64)),
+                               torch.from_numpy(np.asarray(j, np.int64)), K)
+        return (label, torch.from_numpy(forb.astype(np.int8)).to(dev),
+                rowptr.to(dev), col.to(dev))
+
+    def clique(K):
+        return ~np.eye(K, dtype=bool)
+
+    def rand_adj(K, p):
+        a = np.triu(rng.random((K, K)) < p, 1)
+        return a | a.T
+
+    sat = np.zeros((3, 4), np.int8)
+    sat[0] = 1                                  # row 0: no free colour
+    sat[1, [0, 1, 3]] = 1
+    rand_forb = (rng.random((4096, 128)) < 0.5).astype(np.int8)
+    rand_forb[::97] = 1                         # saturated rows
+    return [
+        case("K=1", np.zeros((1, 128))),
+        case("a saturated row, C=4", sat, clique(3)),
+        case("empty adjacency, K=4096 C=128", rand_forb),
+        case("clique K=300 C=512", np.zeros((300, 512)), clique(300)),
+        case("clique K=300 C=128 (rows 128 on saturate)",
+             np.zeros((300, 128)), clique(300)),
+        case("random K=500 C=20 (byte search)",
+             (rng.random((500, 20)) < 0.3), rand_adj(500, 0.05)),
+        case("random K=2000 C=16384", (rng.random((2000, 16384)) < 0.999),
+             rand_adj(2000, 0.01)),
+    ]
+
+
+def vc_phase(dev, gpu: str, g):
+    """Phase 16: V1 against its plain version (hand-made cases, the
+    R-MAT-16 and R-MAT-20 cores as the solver builds them), vc_solver at
+    R-MAT-16 and R-MAT-20 against vc_check and, at R-MAT-16, against the
+    whole solve with the plain core loop; the R-MAT-20 VC bench.  Returns
+    (V1's entry of the kernels line, the R-MAT-16 graph)."""
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.core.graph import from_csr_of
+    from gardenia_tpu_torch.ops import vc_core
+    from gardenia_tpu_torch.solvers import vc
+    from gardenia_tpu_torch.verify import oracles
+    stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+
+    def hold(label, forb, rowptr, col):
+        """V1 and the plain loop on the same inputs, exact; (chosen, the
+        plain loop's ms)."""
+        got = vc_core.vc_core_firstfit(forb, rowptr, col)
+        want, plain_ms = timed_once(
+            lambda: vc_core.vc_core_firstfit_plain(forb, rowptr, col))
+        bad = int((got != want).sum())
+        err = int((got - want).abs().max()) if got.numel() else 0
+        stats["cases"] += 1
+        stats["mismatches"] += bad
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        print(f"[16] V1 {label}: K {forb.shape[0]} C {forb.shape[1]}, "
+              f"{col.numel()} upper edges, {int((got < 0).sum())} saturated"
+              f", {bad} entries differ from the plain loop's")
+        if bad:
+            fail(f"V1 disagrees with its plain version on {label}")
+        return got, plain_ms
+
+    for label, forb, rowptr, col in v1_hand_cases(dev):
+        got, _ = hold(label, forb, rowptr, col)
+        if label.startswith("clique"):
+            K, C = forb.shape
+            want = torch.arange(K, dtype=torch.int32, device=dev)
+            if not torch.equal(got, torch.where(want < C, want, -1)):
+                fail(f"V1 on {label} is not 0, 1, ... then saturated")
+
+    def capturing(run, seen, first=False):
+        """run() with the inputs of its V1 calls kept in `seen`: the first
+        call's, or else the last's (the wrapper does not modify them)."""
+        real = vc_core.vc_core_firstfit
+
+        def spy(forb, rowptr, col):
+            if not (first and seen):
+                seen[:] = [(forb, rowptr, col)]
+            return real(forb, rowptr, col)
+        vc_core.vc_core_firstfit = spy
+        try:
+            return run()
+        finally:
+            vc_core.vc_core_firstfit = real
+
+    def solve_capturing(graph):
+        """vc_solver(graph) and the inputs of its first core pass."""
+        seen = []
+        t0 = time.perf_counter()
+        res = capturing(lambda: vc.vc_solver(graph, device=dev), seen,
+                        first=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ok = oracles.vc_check(graph, res.colors.cpu().numpy())
+        print(f"[16] vc rmat{int(np.log2(graph.m))}: {res.num_colors} colours,"
+              f" {res.iterations} rounds {json.dumps(res.rounds)}, palette "
+              f"{res.palette}, first core pass {res.core_size} vertices, "
+              f"first solve {secs:.2f} s; vc_check {'passes' if ok else 'FAILS'}")
+        if not ok or res.colors.shape != (graph.m,) or not seen:
+            fail(f"vc_solver on rmat{int(np.log2(graph.m))}: not a proper "
+                 "colouring, or no core pass")
+        return res, seen[0]
+
+    g16 = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                         symmetrize=True)
+    res16, core16 = solve_capturing(g16)
+    _, plain16 = hold(f"rmat{SMOKE_SCALE} core", *core16)
+    # the whole solve with the plain core loop in place of V1
+    real = vc_core.vc_core_firstfit
+    vc_core.vc_core_firstfit = vc_core.vc_core_firstfit_plain
+    try:
+        res16p = vc.vc_solver(from_csr_of(g16), device=dev)
+    finally:
+        vc_core.vc_core_firstfit = real
+    same = (torch.equal(res16.colors, res16p.colors)
+            and res16.iterations == res16p.iterations)
+    print(f"[16] vc rmat{SMOKE_SCALE} with the plain core loop in place of "
+          f"V1: colours and rounds {'equal' if same else 'NOT equal'}")
+    if not same:
+        fail("vc_solver with V1 and with the plain core loop differ")
+    # the dense and sparse rounds on the card against the same solve on the
+    # CPU, whose plain versions the tests hold to the JAX solver
+    saved = vc.VC_SPARSE_CAPS, vc.VC_CORE_CAP
+    try:
+        for caps, core in VC_FORCED_TIERS:
+            vc.VC_SPARSE_CAPS, vc.VC_CORE_CAP = caps, core
+            on_card = vc.vc_solver(from_csr_of(g16), device=dev)
+            on_cpu = vc.vc_solver(from_csr_of(g16), device="cpu")
+            same = (torch.equal(on_card.colors.cpu(), on_cpu.colors)
+                    and on_card.rounds == on_cpu.rounds)
+            print(f"[16] vc rmat{SMOKE_SCALE}, VC_SPARSE_CAPS {caps}, "
+                  f"VC_CORE_CAP {core}: rounds {json.dumps(on_card.rounds)},"
+                  f" {on_card.num_colors} colours; colours and rounds "
+                  f"{'equal' if same else 'NOT equal'} to the CPU solve's")
+            if not same:
+                fail("vc_solver's dense or sparse rounds differ on the card")
+    finally:
+        vc.VC_SPARSE_CAPS, vc.VC_CORE_CAP = saved
+
+    # the graph's first solve: its first core pass saturates rows at C 128
+    # and the palette doubles, a case that the bench's solves, at the
+    # palette the graph then remembers, no longer take
+    _, first20 = solve_capturing(g)
+    hold(f"rmat{MAIN_SCALE} first core pass of a fresh solve", *first20)
+    del first20
+
+    # the main path: the bench's VC, V1's launches counted around it and
+    # the inputs of its last solve's core pass kept (some 50 MB, alive
+    # from one solve's core pass into the next solve)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()     # earlier phases' layouts
+    seen = []
+    vc_core.LAUNCHES = 0
+    record, _, res = capturing(
+        lambda: bench.bench_vc(MAIN_SCALE, dev, g=g), seen)
+    launches = vc_core.LAUNCHES
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    print(json.dumps(record))
+    solves = bench.WARMUP + bench.ITERS
+    # what a dense round holds at once beside the graph's resident CSR and
+    # COO: its (m, C) int32 table and mask, three int64 edge temporaries
+    reckoned = (5 * g.m * res.palette + 24 * g.nnz) / 2 ** 30
+    print(f"[16] vc bench rmat{MAIN_SCALE}: V1 launches {launches} over "
+          f"{solves} solves ({res.rounds['core']} core passes a solve), peak "
+          f"device memory {peak:.2f} GiB above the {resident / 2 ** 30:.2f} "
+          f"GiB resident before (reckoned {reckoned:.2f} GiB: the "
+          f"dense round's (m, {res.palette}) int32 table and mask 5 m C, "
+          f"three int64 edge temporaries 24 |E|)")
+    if launches == 0 or launches != solves * res.rounds["core"]:
+        fail(f"V1 launches {launches} != {solves} x {res.rounds['core']}")
+    if not oracles.vc_check(g, res.colors.cpu().numpy()):
+        fail("the VC bench's colouring is not proper")
+    # V1 held and timed on the core pass that the bench's last solve built
+    if not seen or seen[0][0].shape[1] != res.palette:
+        fail(f"no core pass of the VC bench at its palette {res.palette} "
+             "was captured")
+    core20 = seen[0]
+    _, plain20 = hold(f"rmat{MAIN_SCALE} core of the bench's last solve",
+                      *core20)
+    ms = {label: cuda_ms(lambda: vc_core.vc_core_firstfit(*inputs), reps=5)
+          for label, inputs in (("rmat16", core16), ("rmat20", core20))}
+    floor = {label: cuda_ms(lambda: vc_core.empty_steps(
+        inputs[0].shape[0], dev), reps=5)
+        for label, inputs in (("rmat16", core16), ("rmat20", core20))}
+    bounds = {label: bound(v1_bytes(*inputs), 0)
+              for label, inputs in (("rmat16", core16), ("rmat20", core20))}
+    print(f"[16] gpu: {gpu}")
+    for label, inputs, plain in (("rmat16", core16, plain16),
+                                 ("rmat20", core20, plain20)):
+        K, C = inputs[0].shape
+        print(f"[16] V1 at the {label} core (K {K}, C {C}, "
+              f"{inputs[2].numel()} upper edges): {ms[label]:.3f} ms, plain "
+              f"loop {plain:.1f} ms, bound {bounds[label][0]:.4f} ms "
+              f"({bounds[label][1]}), {K} empty steps {floor[label]:.3f} ms")
+    entry = {
+        "name": "vc_core_firstfit", "route": "cuda", "source": V1_SOURCE,
+        "replaces": V1_REPLACES, "launches": launches,
+        "launches_by_path": {f"vc bench rmat{MAIN_SCALE}": launches},
+        **stats, "ms": ms["rmat20"], "plain_ms": plain20,
+        "bound_ms": bounds["rmat20"][0], "bound_by": bounds["rmat20"][1],
+        "steps_floor_ms": floor["rmat20"], "core_K": core20[0].shape[0],
+        "core_C": core20[0].shape[1],
+        "ms_rmat16": ms["rmat16"], "plain_ms_rmat16": plain16,
+        "bound_ms_rmat16": bounds["rmat16"][0],
+        "steps_floor_ms_rmat16": floor["rmat16"],
+        "core_C_rmat16": core16[0].shape[1], "library_ms": None}
+    return entry, g16
+
+
+def symgs_reference(g, Ax, x0, b, diag, colors) -> np.ndarray:
+    """An independent float64 symmetric sweep: scipy's CSR with its rows
+    sorted by colour, each block's row slice times x."""
+    A = scipy_csr(g, np.asarray(Ax, np.float64))
+    order = np.argsort(colors, kind="stable")
+    P = A[order]
+    ends = np.cumsum(np.bincount(colors))
+    blocks = [(e - c, e) for c, e in zip(np.bincount(colors), ends) if c]
+    x = np.asarray(x0, np.float64).copy()
+    b, diag = np.asarray(b, np.float64), np.asarray(diag, np.float64)
+    for r0, r1 in blocks + blocks[::-1]:
+        rows = order[r0:r1]
+        d = diag[rows]
+        new = (b[rows] - P[r0:r1] @ x) / np.where(d != 0, d, 1)
+        x[rows] = np.where(d != 0, new, x[rows])
+    return x
+
+
+def symgs_phase(dev, gpu: str, g, g16) -> None:
+    """Phase 17: SymGS at R-MAT-16 against the serial sweep; the R-MAT-20
+    bench against an independent f64 sweep.  Each within the CLI's l2 <
+    1e-4 and SYMGS_F64_L2, on colours that vc_check holds proper."""
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
+    from gardenia_tpu_torch.verify import l2_error, oracles
+
+    def check(label, graph, colors, x, want, ref, t0):
+        secs = time.perf_counter() - t0
+        proper = oracles.vc_check(graph, colors)
+        err = l2_error(x, want)
+        print(f"[17] symgs {label}: {int(colors.max()) + 1} colours, "
+              f"vc_check {'passes' if proper else 'FAILS'}; l2 error "
+              f"{err:.3e} against {ref} ({secs:.1f} s; limits: the CLI's "
+              f"1e-4, an f32 sweep's {SYMGS_F64_L2}); finite: "
+              f"{bool(np.isfinite(x).all())}; gpu: {gpu}")
+        if not proper:
+            fail(f"symgs {label}: the colouring fed to it is not proper")
+        if (not err < 1e-4 or not err < SYMGS_F64_L2
+                or x.shape != (graph.m,) or not np.isfinite(x).all()):
+            fail(f"symgs {label} disagrees with its f64 reference: l2 {err}")
+
+    Ax, x0, b, diag, colors = default_inputs(g16, dev)
+    res = symgs_solver(g16, Ax, x0, b, diag, colors, device=dev)
+    order = np.argsort(colors, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(colors))])
+    t0 = time.perf_counter()
+    expect = oracles.symgs_serial(g16, order, Ax, diag, x0, b, offsets)
+    check(f"rmat{SMOKE_SCALE}", g16, colors, res.x.cpu().numpy(), expect,
+          "the serial sweep", t0)
+    record, _, res = bench.bench_symgs(MAIN_SCALE, dev, g=g)
+    print(json.dumps(record))
+    t0 = time.perf_counter()
+    inputs = default_inputs(g, dev)
+    want = symgs_reference(g, *inputs)
+    check(f"bench rmat{MAIN_SCALE}", g, inputs[4], res.x.cpu().numpy(), want,
+          "the f64 per-colour sweep", t0)
+
+
+def sgd_reference(gr, epochs: int, step: float, lam: float):
+    """(trace, user_lv, item_lv) of an independent float64 replica of the
+    mini-batched epoch: the same shuffle, batches and inverse counts, the
+    per-vertex sums as scipy.sparse products."""
+    import scipy.sparse as sp
+    from gardenia_tpu_torch.solvers.sgd import init_latent, num_items
+    m, n, nnz = gr.m, num_items(gr), gr.nnz
+    batches = min(64, nnz // 65536)
+    per = -(-nnz // batches)
+    src = np.repeat(np.arange(m), np.diff(gr.rowptr))
+    dst = np.asarray(gr.colidx, np.int64)
+    r = np.asarray(gr.weights, np.float64)
+    order = np.random.default_rng(17).permutation(nnz)
+    pad = batches * per - nnz
+    order = np.concatenate([order, np.zeros(pad, np.int64)])
+    valid = np.concatenate([np.ones(nnz), np.zeros(pad)])
+    U = init_latent(m, 0).astype(np.float64)
+    It = init_latent(n, 1).astype(np.float64)
+    trace = []
+    for _ in range(epochs):
+        sq = 0.0
+        for bt in range(batches):
+            sl = order[bt * per:(bt + 1) * per]
+            v = valid[bt * per:(bt + 1) * per]
+            s, d = src[sl], dst[sl]
+            nu = 1 / np.maximum(np.bincount(s, v, m)[s], 1)
+            ni = 1 / np.maximum(np.bincount(d, v, n)[d], 1)
+            us, it_ = U[s], It[d]
+            delta = (r[sl] - (us * it_).sum(1)) * v
+            sq += (delta * delta).sum()
+            e = np.arange(len(sl))
+            U = U + step * (sp.csr_matrix((delta * nu, (s, e)),
+                                          shape=(m, len(sl))) @ it_)
+            It = It + step * (sp.csr_matrix((delta * ni, (d, e)),
+                                            shape=(n, len(sl))) @ us)
+        U, It = U - step * lam * U, It - step * lam * It
+        trace.append(np.sqrt(sq / nnz))
+    return np.array(trace), U, It
+
+
+def sgd_phase(dev, gpu: str, g, g16) -> None:
+    """Phase 18: SGD at R-MAT-16, 4 epochs, against the f64 replica; the
+    R-MAT-20 bench (10 epochs) with the CLI's monotone check."""
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.cli import sgd_trace_ok
+    from gardenia_tpu_torch.solvers.sgd import DEFAULT_LAMBDA, sgd_solver
+    gr16 = bench.sgd_graph(g16)
+    res = sgd_solver(gr16, step=bench.SGD_STEP, max_iters=SGD_SMOKE_EPOCHS,
+                     epsilon=0.0, init=bench.sgd_init(gr16, dev), device=dev)
+    t0 = time.perf_counter()
+    trace, U, It = sgd_reference(gr16, SGD_SMOKE_EPOCHS, bench.SGD_STEP,
+                                 DEFAULT_LAMBDA)
+    got = res.rmse.cpu().numpy()
+    rel_t = float(np.abs(got - trace).max() / trace.max())
+    rel_f = max(float(np.abs(a.cpu().numpy() - b).max() / np.abs(b).max())
+                for a, b in ((res.user_lv, U), (res.item_lv, It)))
+    print(f"[18] sgd rmat{SMOKE_SCALE}, {SGD_SMOKE_EPOCHS} epochs: trace "
+          f"{[round(float(t), 6) for t in got]}, the f64 replica's "
+          f"{[round(float(t), 6) for t in trace]} ({time.perf_counter() - t0:.1f}"
+          f" s); worst rel diff: trace {rel_t:.3e} (limit {SGD_TRACE_REL}), "
+          f"factors {rel_f:.3e} (limit {SGD_FACTOR_REL})")
+    if not (rel_t < SGD_TRACE_REL and rel_f < SGD_FACTOR_REL
+            and sgd_trace_ok(got)):
+        fail("SGD disagrees with its f64 replica, or its trace is not "
+             "monotone")
+    record, _, res = bench.bench_sgd(MAIN_SCALE, dev, g=g)
+    print(json.dumps(record))
+    trace = res.rmse.cpu().numpy()[:res.iterations]
+    final = float(trace[-1])
+    gap = final / SGD_TPU_FINAL_RMSE - 1
+    print(f"[18] sgd bench rmat{MAIN_SCALE}: {res.iterations} epochs, trace "
+          f"finite and monotone: {sgd_trace_ok(trace)}; final RMSE {final} "
+          f"(the TPU record's, for comparison only: {SGD_TPU_FINAL_RMSE}, "
+          f"gap {gap:+.2%}); gpu: {gpu}")
+    if not sgd_trace_ok(trace) or res.iterations != bench.SGD_EPOCHS:
+        fail("the SGD bench's trace is not finite and monotone")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1904,6 +2327,15 @@ def main() -> None:
     # ---- 15. MST, SCC, clustering and random walks ------------------------
     mst_scc_phase(dev, gpu, g)
 
+    # ---- 16. VC: V1 against its plain version, the solver, the bench ------
+    v1_entry, g16 = vc_phase(dev, gpu, g)
+
+    # ---- 17. SymGS: the serial sweep at R-MAT-16, the R-MAT-20 bench ------
+    symgs_phase(dev, gpu, g, g16)
+
+    # ---- 18. SGD: the f64 replica at R-MAT-16, the R-MAT-20 bench ---------
+    sgd_phase(dev, gpu, g, g16)
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -1975,6 +2407,7 @@ def main() -> None:
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    entries.append(v1_entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

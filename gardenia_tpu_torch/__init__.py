@@ -32,6 +32,12 @@ Then SpMV, SSSP, MST, SCC, clustering and random walks:
   ops/frontier and the weighted in-ELL's min-plus spmv_ell), solvers/
   mst, scc, clustering, sampling (scatter_reduce_ hooks and closures,
   ops/pointer_jump) -> cli / bench.
+Slice 9 is vertex colouring, SymGS and SGD:
+  solvers/vc (host-chosen dense, sparse (ops/frontier) and core rounds;
+  the core pass's sequential first-fit is kernel V1, ops/vc_core) ->
+  solvers/symgs (colour-ordered CSR, a segment sum a block) and
+  solvers/sgd (mini-batched epochs by index_add_, the full-gradient step,
+  utils/checkpoint) -> cli / bench.
 """
 
 from __future__ import annotations

@@ -48,13 +48,28 @@ repo's bench.py:
        graph (a symmetrized one degenerates to CC), best of 2 after one
        warm-up; vs_baseline = 1.0 ms per M edges / the measured; detail.
        sccs and rounds.
+  vc — `vc_ms_rmat{scale}`: ms of vc_solver, best of 3 after one warm-up
+       (which also finds the palette, remembered on the graph);
+       vs_baseline = 1.0 ms per M edges / the measured; detail.num_colors,
+       rounds (all, and by tier: dense, sparse, core), palette, core_size
+       and v1_launches, kernel V1's launches over the 4 solves.
+  symgs — `symgs_gflops_rmat{scale}`: 4 x edges / the best-of-3 seconds of
+       one symmetric sweep (forward and backward over the colour blocks)
+       after one warm-up; Ax, x, b from default_rng(13), diag = degree +
+       1, the port's colouring as untimed set-up; vs 30 GFLOP/s;
+       detail.colors and ms.
+  sgd — `sgd_mf_mrps_rmat{scale}`: edges x 10 epochs / best-of-2 seconds
+       / 1e6 of mini-batched SGD (step 0.1, epsilon 0) on the R-MAT graph
+       with ratings integers(1, 6) from default_rng(13), the latent
+       tables made and uploaded before the timed solves; vs 500 M
+       ratings/s; detail.final_rmse and epochs.
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
 must not round to 0.
 
 Run: python -m gardenia_tpu_torch.bench
-         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc}]
+         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc,vc,symgs,sgd}]
                                         [--scale 20] [--device cuda]
 """
 
@@ -78,6 +93,10 @@ BASELINE_SPMV_GFLOPS = 55.0
 BASELINE_SSSP_GTEPS = 1.0
 BASELINE_MST_MS_PER_MEDGE = 2.0
 BASELINE_SCC_MS_PER_MEDGE = 1.0
+BASELINE_VC_MS_PER_MEDGE = 1.0
+BASELINE_SYMGS_GFLOPS = 30.0
+BASELINE_SGD_MRPS = 500.0
+SGD_EPOCHS, SGD_STEP = 10, 0.1   # bench.py:290-331
 SPMV_REPS = 8             # applies a timed SpMV solve, as bench.py:142
 SSSP_DELTA = 1024         # bench.py:335-369
 SOURCES = 128             # msbfs and bc: sources 0..127, as bench.py takes
@@ -369,9 +388,100 @@ def bench_scc(scale: int, device="cuda", g=None):
     return record, g, res
 
 
+def bench_vc(scale: int, device="cuda", g=None):
+    """(record, graph, last VCResult) of the VC benchmark (bench.py:
+    442-452); g, when given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.ops import vc_core
+    from gardenia_tpu_torch.solvers.vc import vc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = vc_core.LAUNCHES
+    res, secs = time_op(lambda: vc_solver(g, device=dev), warmup=WARMUP,
+                        iters=ITERS, device=dev)
+    ms_per_medge = secs * 1e3 / (g.nnz / 1e6)
+    record = {"metric": f"vc_ms_rmat{scale}", "value": secs * 1e3,
+              "unit": "ms",
+              "vs_baseline": BASELINE_VC_MS_PER_MEDGE / ms_per_medge,
+              "detail": {"num_colors": res.num_colors,
+                         "rounds": res.iterations,
+                         "rounds_by_tier": res.rounds,
+                         "palette": res.palette,
+                         "core_size": res.core_size,
+                         "v1_launches": vc_core.LAUNCHES - before,
+                         "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev)}}
+    return record, g, res
+
+
+def bench_symgs(scale: int, device="cuda", g=None):
+    """(record, graph, last SymGSResult) of the SymGS benchmark (bench.py:
+    500-522); the colouring is set-up, not timed."""
+    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    inputs = default_inputs(g, dev)
+    res, secs = time_op(lambda: symgs_solver(g, *inputs, device=dev),
+                        warmup=WARMUP, iters=ITERS, device=dev)
+    gflops = 4 * g.nnz / secs / 1e9
+    record = {"metric": f"symgs_gflops_rmat{scale}", "value": gflops,
+              "unit": "GFLOP/s",
+              "vs_baseline": gflops / BASELINE_SYMGS_GFLOPS,
+              "detail": {"ms": secs * 1e3, "colors": res.num_colors,
+                         "nnz": g.nnz, "m": g.m,
+                         "device": device_name(dev)}}
+    return record, g, res
+
+
+def sgd_graph(g):
+    """g with ratings integers(1, 6) from default_rng(13) as its weights
+    (bench.py:306-314), a new Graph over the same CSR."""
+    import numpy as np
+    from gardenia_tpu_torch.core.graph import Graph
+    rng = np.random.default_rng(13)
+    return Graph(g.rowptr, g.colidx,
+                 rng.integers(1, 6, g.nnz).astype(np.float64),
+                 num_cols=g.n, symmetric=g.symmetric)
+
+
+def sgd_init(g, device):
+    """The latent tables init_latent(m, 0), init_latent(n, 1) on device."""
+    from gardenia_tpu_torch.solvers.sgd import init_latent, num_items
+    return (torch.from_numpy(init_latent(g.m, 0)).to(device),
+            torch.from_numpy(init_latent(num_items(g), 1)).to(device))
+
+
+def bench_sgd(scale: int, device="cuda", g=None, epochs: int = SGD_EPOCHS):
+    """(record, rating graph, last SGDResult) of the SGD benchmark
+    (bench.py:290-331); g, when given, is the graph get_graph(scale)
+    returns, under the benchmark's ratings."""
+    from gardenia_tpu_torch.solvers.sgd import sgd_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    gr = sgd_graph(get_graph(scale) if g is None else g)
+    init = sgd_init(gr, dev)
+    res, secs = time_op(lambda: sgd_solver(gr, step=SGD_STEP,
+                                           max_iters=epochs, epsilon=0.0,
+                                           init=init, device=dev),
+                        warmup=TC_WARMUP, iters=TC_ITERS, device=dev)
+    mrps = gr.nnz * epochs / secs / 1e6
+    trace = res.rmse.cpu().tolist()[:res.iterations]
+    record = {"metric": f"sgd_mf_mrps_rmat{scale}", "value": mrps,
+              "unit": "M ratings/s", "vs_baseline": mrps / BASELINE_SGD_MRPS,
+              "detail": {"epochs": epochs, "ms": secs * 1e3,
+                         "final_rmse": trace[-1], "rmse": trace,
+                         "nnz": gr.nnz, "m": gr.m,
+                         "device": device_name(dev)}}
+    return record, gr, res
+
+
 KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
            "msbfs": bench_msbfs, "bc": bench_bc, "spmv": bench_spmv,
-           "sssp": bench_sssp, "mst": bench_mst, "scc": bench_scc}
+           "sssp": bench_sssp, "mst": bench_mst, "scc": bench_scc,
+           "vc": bench_vc, "symgs": bench_symgs, "sgd": bench_sgd}
 
 
 def main(argv=None):

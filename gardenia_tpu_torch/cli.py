@@ -1,6 +1,6 @@
 """Benchmark CLI of the port — the `pr`, `spmv`, `bfs`, `sssp`, `cc`, `bc`,
-`tc`, `scc` and `mst` kernels, with the positional argv of
-gardenia_tpu/cli.py:
+`tc`, `scc`, `mst`, `vc`, `symgs` and `sgd` kernels, with the positional
+argv of gardenia_tpu/cli.py:
 
   python -m gardenia_tpu_torch.cli <kernel> <filetype> <graph-prefix|scale>
                                    [symmetrize] [kernel args...]
@@ -17,6 +17,9 @@ e.g.
   python -m gardenia_tpu_torch.cli sssp rmat 20 1 0 0 64 --variant=nearfar
   python -m gardenia_tpu_torch.cli scc rmat 20 --variant=wcc
   python -m gardenia_tpu_torch.cli mst rmat 20
+  python -m gardenia_tpu_torch.cli vc rmat 20
+  python -m gardenia_tpu_torch.cli symgs rmat 16
+  python -m gardenia_tpu_torch.cli sgd rmat 20 0 0 0.05 0.003 3
 
 Flags may stand anywhere among the positionals, as in the reference's CLI
 (`--device cpu` in two words is taken too); an unknown flag prints a
@@ -32,10 +35,16 @@ ms.', 'GTEPS = ...'; tc: 'runtime [<variant>] = X sec',
 = X ms.', bfs also 'GTEPS = ...'; spmv: 'runtime [<variant>] = X ms (
 G GFLOP/s B GB/s)'; sssp: 'iterations = N.' and the runtime; scc:
 the runtime and 'number of SCCs = N'; mst: the runtime and 'MST weight =
-W') and the serial oracle's 'Correct'/'Wrong'.  bfs takes [symmetrize]
+W'; vc: 'runtime [base] = X ms, num_colors = N.'; symgs: the runtime;
+sgd: 'Iteration i: RMSE error = E' per epoch, 'iterations = N.' and the
+runtime) and the serial oracle's 'Correct'/'Wrong' (vc: a proper
+colouring; symgs: l2 error < 1e-4 against the serial sweep, a
+pure-Python loop that takes minutes at R-MAT-20; sgd: a finite RMSE
+trace, non-increasing within 0.1% an epoch, that ends below where it
+began).  bfs takes [symmetrize]
 [reverse] [source] and bc the same after the graph (src/bfs/main.cc:
-8-19); sssp takes [symmetrize] [reverse] [source] [delta].  `main`
-returns 1 on 'Wrong'.
+8-19); sssp takes [symmetrize] [reverse] [source] [delta]; sgd [symmetrize] [-]
+[lambda] [step] [max_iters].  `main` returns 1 on 'Wrong'.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ import sys
 import numpy as np
 
 from gardenia_tpu_torch.core.graph import load_graph
-from gardenia_tpu_torch.verify import check, maximum_relative_error, oracles
+from gardenia_tpu_torch.verify import (check, l2_error,
+                                      maximum_relative_error, oracles)
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.utils.report import gteps, report_runtime, spmv_bytes
 from gardenia_tpu_torch.utils.timer import time_op
@@ -236,9 +246,75 @@ def run_mst(args, device, variant="boruvka") -> bool:
                  f"(expected {expect})")
 
 
+def run_vc(args, device, variant="base") -> bool:
+    """vc <filetype> <graph>: symmetrizes by default; a proper colouring."""
+    if variant != "base":
+        raise ValueError(f"unknown vc variant {variant!r} (only 'base')")
+    print("Vertex Coloring by gardenia_tpu_torch")
+    g, _ = _load(args, symmetrize_default=True)
+    from gardenia_tpu_torch.solvers.vc import vc_solver
+    res, secs = time_op(lambda: vc_solver(g, device=device), device=device)
+    print(f"\truntime [{variant}] = {secs * 1e3:f} ms, "
+          f"num_colors = {res.num_colors}.")
+    return check(oracles.vc_check(g, res.colors.cpu().numpy()))
+
+
+def run_symgs(args, device, variant="base") -> bool:
+    """symgs <filetype> <graph>: symmetrizes by default; Ax, x and b from
+    default_rng(13), diag = degree + 1, the port's colouring (untimed);
+    l2 error < 1e-4 against the serial sweep over the same colour blocks."""
+    if variant != "base":
+        raise ValueError(f"unknown symgs variant {variant!r} (only 'base')")
+    print("Symmetric Gauss-Seidel smoother by gardenia_tpu_torch")
+    g, _ = _load(args, symmetrize_default=True)
+    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
+    Ax, x0, b, diag, colors = default_inputs(g, device)
+    res, secs = time_op(lambda: symgs_solver(g, Ax, x0, b, diag, colors,
+                                             device=device), device=device)
+    report_runtime(variant, secs)
+    order = np.argsort(colors, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(colors))])
+    expect = oracles.symgs_serial(g, order, Ax, diag, x0, b, offsets)
+    err = l2_error(res.x.cpu().numpy(), expect)
+    return check(err < 1e-4, f"(l2 err {err})")
+
+
+def run_sgd(args, device, variant="base") -> bool:
+    """sgd <filetype> <graph> [symmetrize] [-] [lambda] [step] [max_iters]:
+    the RMSE trace finite, non-increasing within 0.1% an epoch (stochastic
+    batches), and strictly lower at the end than after the first epoch."""
+    if variant != "base":
+        raise ValueError(f"unknown sgd variant {variant!r} (only 'base')")
+    print("Stochastic Gradient Descent by gardenia_tpu_torch")
+    g, rest = _load(args)
+    lam = float(rest[1]) if len(rest) > 1 else 0.05
+    step = float(rest[2]) if len(rest) > 2 else 0.003
+    max_iters = int(rest[3]) if len(rest) > 3 else 3
+    from gardenia_tpu_torch.solvers.sgd import sgd_solver
+    res, secs = time_op(lambda: sgd_solver(g, lam, step, max_iters,
+                                           epsilon=0.0, device=device),
+                        device=device)
+    trace = res.rmse.cpu().numpy()[:res.iterations]
+    for i, e in enumerate(trace):
+        print(f"Iteration {i + 1}: RMSE error = {e:f}")
+    print(f"\titerations = {res.iterations}.")
+    report_runtime(variant, secs)
+    return check(sgd_trace_ok(trace))
+
+
+def sgd_trace_ok(trace) -> bool:
+    """The CLI's quality bar (gardenia_tpu/cli.py:241-250): finite,
+    non-increasing within 0.1% an epoch, and a strict net decrease."""
+    trace = np.asarray(trace)
+    return bool(len(trace) and np.isfinite(trace).all()
+                and (trace[1:] <= trace[:-1] * 1.001).all()
+                and trace[-1] < trace[0])
+
+
 KERNELS = {"pr": run_pr, "spmv": run_spmv, "bfs": run_bfs,
            "sssp": run_sssp, "cc": run_cc, "bc": run_bc, "tc": run_tc,
-           "scc": run_scc, "mst": run_mst}
+           "scc": run_scc, "mst": run_mst, "vc": run_vc,
+           "symgs": run_symgs, "sgd": run_sgd}
 
 
 def main(argv=None) -> int:

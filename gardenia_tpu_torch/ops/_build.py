@@ -141,6 +141,12 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = []
                 fn.restype = ci
+            # (forb, rowptr, col, chosen, K, C, stream)
+            so.gdn_vc_core_firstfit.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            so.gdn_vc_core_firstfit.restype = ci
+            # (K, sink, stream)
+            so.gdn_vc_core_steps.argtypes = [ci, vp, vp]
+            so.gdn_vc_core_steps.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

@@ -1,7 +1,7 @@
 """Where a solve's device time goes, by torch.profiler on a CUDA card.
 
     python -m gardenia_tpu_torch.profile_solve
-        [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst}]
+        [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst,vc,symgs,sgd}]
         [--graph {rmat,uniform}] [--scale 20] [--solves 3]
         [--trace chiprun_out/trace.json]
 
@@ -9,10 +9,13 @@ On the bench's graph (bench.get_graph; `--graph uniform`: the uniform
 random graph of the same scale and degree, on which cc_sv takes a dense
 round; sssp: the bench's weighted grid of side 2^(scale // 2); scc: the
 directed R-MAT graph; mst: the R-MAT graph with the bench's hash
-weights), with the bench's solver (cc: cc_sv; bfs:
+weights; sgd: the R-MAT graph with the bench's ratings), with the bench's
+solver (cc: cc_sv; bfs:
 bfs_do_fused from the vertex of highest degree; msbfs and bc: sources
 0..127; spmv: the bench's 8 hybrid applies on the PR layout with scale
-0.2; sssp: nearfar from vertex 0 with delta 1024; scc: 'color'): one
+0.2; sssp: nearfar from vertex 0 with delta 1024; scc: 'color'; symgs:
+the bench's inputs and colouring; sgd: 10 epochs at step 0.1 from the
+bench's latent tables): one
 untraced solve that
 builds and uploads (layout or TC prep), then `--solves` untraced solves
 timed on the host clock after cuda.synchronize, then `--solves` solves
@@ -69,6 +72,26 @@ def solver(kernel: str, g):
     if kernel == "mst":
         from gardenia_tpu_torch.solvers.mst import mst_solver
         return mst_solver
+    if kernel == "vc":
+        from gardenia_tpu_torch.solvers.vc import vc_solver
+        return vc_solver
+    if kernel == "symgs":
+        from gardenia_tpu_torch.solvers.symgs import (default_inputs,
+                                                      symgs_solver)
+
+        def symgs(g, device):
+            return symgs_solver(g, *default_inputs(g, device), device=device)
+        return symgs
+    if kernel == "sgd":
+        from gardenia_tpu_torch.bench import SGD_EPOCHS, SGD_STEP, sgd_init
+        from gardenia_tpu_torch.solvers.sgd import sgd_solver
+
+        def sgd(g, device):
+            init = g._dev(("torch", "sgd_bench_init", str(device)),
+                          lambda: sgd_init(g, device))
+            return sgd_solver(g, step=SGD_STEP, max_iters=SGD_EPOCHS,
+                              epsilon=0.0, init=init, device=device)
+        return sgd
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
 
@@ -83,6 +106,8 @@ def bench_graph(kernel: str, kind: str, scale: int):
         return bench.get_graph_directed(scale)
     if kernel == "mst":
         return bench.mst_graph(bench.get_graph(scale))
+    if kernel == "sgd":
+        return bench.sgd_graph(bench.get_graph(scale))
     return (bench.get_graph(scale) if kind == "rmat" else
             generate_graph("uniform", scale=scale, degree=16,
                            symmetrize=True))
@@ -93,7 +118,7 @@ def main(argv=None):
                                       "profile_solve")
     ap.add_argument("--kernel", default="tc",
                     choices=["pr", "tc", "cc", "bfs", "msbfs", "bc", "spmv",
-                             "sssp", "scc", "mst"])
+                             "sssp", "scc", "mst", "vc", "symgs", "sgd"])
     ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)

@@ -1,2 +1,2 @@
-"""Reporting and timing helpers (torch counterparts of
+"""Reporting, timing and checkpointing helpers (torch counterparts of
 gardenia_tpu.utils)."""

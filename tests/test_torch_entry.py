@@ -42,6 +42,9 @@ assert {"gardenia_tpu_torch.cli", "gardenia_tpu_torch.solvers.cc",
         "gardenia_tpu_torch.solvers.scc",
         "gardenia_tpu_torch.solvers.clustering",
         "gardenia_tpu_torch.solvers.sampling",
+        "gardenia_tpu_torch.solvers.vc", "gardenia_tpu_torch.solvers.symgs",
+        "gardenia_tpu_torch.solvers.sgd", "gardenia_tpu_torch.ops.vc_core",
+        "gardenia_tpu_torch.utils.checkpoint",
         "gardenia_tpu_torch.core.graph", "gardenia_tpu_torch.native",
         "gardenia_tpu_torch.verify.oracles"} <= set(names), names
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
@@ -345,6 +348,75 @@ def test_bench_spmv_sssp_mst_scc_cpu_print_one_json_line(kernel, metric, unit):
         assert rec["vs_baseline"] == per / (rec["value"] / (d["nnz"] / 1e6))
         assert (d["weight"] > 0) if kernel == "mst" else (
             d["sccs"] > 1 and d["rounds"] >= 1)
+
+
+# --- vc, symgs, sgd -----------------------------------------------------
+
+@pytest.mark.parametrize("words", [("vc", "rmat", "10"),
+                                   ("symgs", "rmat", "10"),
+                                   ("sgd", "rmat", "10"),
+                                   ("sgd", "rmat", "10", "0", "0", "0.05",
+                                    "0.003", "5")])
+def test_cli_vc_symgs_sgd_contract_lines(words):
+    """vc, symgs and sgd print the reference's lines (gardenia_tpu/cli.py:
+    133-141, 203-250) and end Correct on the CPU."""
+    proc, lines = _cli(*words, "--device=cpu")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    title = {"vc": "Vertex Coloring",
+             "symgs": "Symmetric Gauss-Seidel smoother",
+             "sgd": "Stochastic Gradient Descent"}[words[0]]
+    assert lines[0] == f"{title} by gardenia_tpu_torch"
+    assert lines[1].startswith("|V| 1024 |E| ")
+    runtime = [ln for ln in lines if ln.startswith("\truntime [base] = ")]
+    assert len(runtime) == 1
+    if words[0] == "vc":
+        from gardenia_tpu.core.generate import generate_graph
+        from gardenia_tpu.solvers.vc import vc_solver
+        want = vc_solver(generate_graph("rmat", scale=10, symmetrize=True))
+        assert runtime[0].endswith(
+            f" ms, num_colors = {int(want.num_colors)}.")
+    else:
+        assert runtime[0].endswith(" ms.")
+    if words[0] == "sgd":
+        epochs = int(words[-1]) if len(words) > 3 else 3
+        assert [ln.split(":")[0] for ln in lines
+                if ln.startswith("Iteration ")] == [
+            f"Iteration {i + 1}" for i in range(epochs)]
+        assert f"\titerations = {epochs}." in lines
+    assert lines[-1] == "Correct"
+
+
+@pytest.mark.parametrize("kernel,metric,unit", [
+    ("vc", "vc_ms_rmat10", "ms"),
+    ("symgs", "symgs_gflops_rmat10", "GFLOP/s"),
+    ("sgd", "sgd_mf_mrps_rmat10", "M ratings/s")])
+def test_bench_vc_symgs_sgd_cpu_print_one_json_line(kernel, metric, unit):
+    """One JSON line with the reference's metric name and formula
+    (bench.py:291-331, 442-452, 500-522).  At scale 10 the SGD bench takes
+    the full-gradient step (no 64K-edge batch), where step 0.1 diverges,
+    in the JAX package too: only its shape is checked here."""
+    proc = _run(["-m", "gardenia_tpu_torch.bench", "--kernel", kernel,
+                 "--scale", "10", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    assert rec["metric"] == metric and rec["unit"] == unit
+    assert rec["value"] > 0 and d["device"] == "cpu" and d["m"] == 1024
+    if kernel == "vc":
+        assert rec["vs_baseline"] == 1.0 / (rec["value"] / (d["nnz"] / 1e6))
+        assert d["rounds"] == sum(d["rounds_by_tier"].values()) >= 1
+        assert d["palette"] == 128 and d["core_size"] == 1024
+        assert d["v1_launches"] == 0 and d["num_colors"] > 1   # CPU: plain
+    elif kernel == "symgs":
+        assert abs(rec["value"] - 4 * d["nnz"] / d["ms"] / 1e6) \
+            < 1e-9 * rec["value"]
+        assert d["colors"] > 1
+    else:
+        assert d["epochs"] == 10 and len(d["rmse"]) == 10
+        assert abs(rec["value"] - d["nnz"] * 10 / d["ms"] / 1e3) \
+            < 1e-9 * rec["value"]
 
 
 def test_timer_needs_its_device():
