@@ -123,10 +123,12 @@ result:
      threshold 128) against scipy's components and random_walks (every
      step an out-edge or a sink staying put, the seed repeating the
      walks) at R-MAT-16;
-  16. vertex colouring: kernel V1 (the core pass's sequential first-fit)
-     against its plain loop, exactly, on hand-made cases (K = 1, a
-     saturated row with C = 4, an empty adjacency, cliques wider and
-     narrower than the palette, C = 20 and 16384), on the R-MAT-16 core
+  16. vertex colouring: kernel V1 (the core pass's sequential first-fit,
+     along the order's dependency DAG) against its plain loop, exactly, on
+     hand-made cases (K = 1, a saturated row with C = 4, an empty
+     adjacency, cliques wider and narrower than the palette, first zeros
+     past the pulled colours, C = 20 and 16384, a K no multiple of the
+     grid's warps, a chain), on the R-MAT-16 core
      (the whole graph, K = 65,536), the first core pass of R-MAT-20's
      first solve (C 128, rows saturating) and the core pass of the
      R-MAT-20 bench's last solve (at the palette the graph remembers);
@@ -135,9 +137,10 @@ result:
      rounds equal) and, with the tiers forced (VC_FORCED_TIERS), to the
      same solve on the CPU; the port's bench (--kernel vc) at R-MAT-20
      with V1's launches set to 0 before and read after, rounds by tier,
-     palette and peak device memory; V1's ms on the bench's core and the
-     R-MAT-16 core beside its plain loop's, its bytes bound and the same
-     kernel's K empty steps (the floor of its dependent steps);
+     palette and peak device memory; 20 more launches of V1 on the bench's
+     core, all equal; V1's ms on the bench's core and the R-MAT-16 core
+     beside its plain loop's, its bytes bound, the depth D of the core's
+     DAG and V1 on a chain of D positions (the floor of D hand-overs);
   17. SymGS at R-MAT-16 against the serial sweep; the bench (--kernel
      symgs) at R-MAT-20 against an independent float64 sweep of scipy's
      colour-ordered CSR; each within the CLI's l2 < 1e-4 and an f32
@@ -209,6 +212,7 @@ TC_KERNELS = {
 # package (no Pallas kernel), a CUDA kernel of the port
 V1_SOURCE = "gardenia_tpu_torch/csrc/vc_core_firstfit.cu"
 V1_REPLACES = "gardenia_tpu/solvers/vc.py:268"
+V1_REPEATS = 20             # launches on one core that must all agree
 # (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
 # default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
 # 3 sparse and a core pass of 468 (counted on the CPU)
@@ -1121,6 +1125,17 @@ def v1_bytes(forb, rowptr, col) -> int:
     return forb.numel() + 8 * rowptr.numel() + 4 * col.numel() + 4 * K
 
 
+def v1_chain(D: int, C: int, dev):
+    """(forb, rowptr, col) of a chain of D positions, each the neighbour
+    of the one before, with free rows: V1's D hand-overs and nothing
+    else (its colours alternate 0, 1)."""
+    import torch
+    rowptr = torch.zeros(D + 1, dtype=torch.int64)
+    rowptr[2:] = torch.arange(1, D)
+    return (torch.zeros((D, C), dtype=torch.int8, device=dev),
+            rowptr.to(dev), torch.arange(D - 1, dtype=torch.int32).to(dev))
+
+
 def v1_hand_cases(dev):
     """(label, forb, rowptr, col) edge cases of V1, on dev."""
     import torch
@@ -1148,6 +1163,8 @@ def v1_hand_cases(dev):
     sat[1, [0, 1, 3]] = 1
     rand_forb = (rng.random((4096, 128)) < 0.5).astype(np.int8)
     rand_forb[::97] = 1                         # saturated rows
+    late = np.zeros((40, 64), np.int8)
+    late[:, :33] = 1                    # first zeros past the pulled ones
     return [
         case("K=1", np.zeros((1, 128))),
         case("a saturated row, C=4", sat, clique(3)),
@@ -1155,10 +1172,16 @@ def v1_hand_cases(dev):
         case("clique K=300 C=512", np.zeros((300, 512)), clique(300)),
         case("clique K=300 C=128 (rows 128 on saturate)",
              np.zeros((300, 128)), clique(300)),
+        case("clique K=40 C=64, columns 0-32 forbidden (first zero in "
+             "word 1)", late, clique(40)),
         case("random K=500 C=20 (byte search)",
              (rng.random((500, 20)) < 0.3), rand_adj(500, 0.05)),
         case("random K=2000 C=16384", (rng.random((2000, 16384)) < 0.999),
              rand_adj(2000, 0.01)),
+        # no multiple of the grid's warps (SMs x 4) or a block's (4)
+        case("random K=5287 C=128 (K no multiple of the warps)",
+             (rng.random((5287, 128)) < 0.1), rand_adj(5287, 0.004)),
+        ("chain K=3000 C=128", *v1_chain(3000, 128, dev)),
     ]
 
 
@@ -1189,7 +1212,7 @@ def vc_phase(dev, gpu: str, g):
         stats["mismatches"] += bad
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         print(f"[16] V1 {label}: K {forb.shape[0]} C {forb.shape[1]}, "
-              f"{col.numel()} upper edges, {int((got < 0).sum())} saturated"
+              f"{col.numel()} lower edges, {int((got < 0).sum())} saturated"
               f", {bad} entries differ from the plain loop's")
         if bad:
             fail(f"V1 disagrees with its plain version on {label}")
@@ -1197,11 +1220,14 @@ def vc_phase(dev, gpu: str, g):
 
     for label, forb, rowptr, col in v1_hand_cases(dev):
         got, _ = hold(label, forb, rowptr, col)
-        if label.startswith("clique"):
+        if label.startswith("clique K=300"):
             K, C = forb.shape
             want = torch.arange(K, dtype=torch.int32, device=dev)
             if not torch.equal(got, torch.where(want < C, want, -1)):
                 fail(f"V1 on {label} is not 0, 1, ... then saturated")
+        if label.startswith("chain") and not torch.equal(
+                got.cpu(), torch.arange(forb.shape[0], dtype=torch.int32) % 2):
+            fail(f"V1 on {label} is not 0, 1, 0, 1, ...")
 
     def capturing(run, seen, first=False):
         """run() with the inputs of its V1 calls kept in `seen`: the first
@@ -1310,34 +1336,53 @@ def vc_phase(dev, gpu: str, g):
         fail(f"no core pass of the VC bench at its palette {res.palette} "
              "was captured")
     core20 = seen[0]
-    _, plain20 = hold(f"rmat{MAIN_SCALE} core of the bench's last solve",
-                      *core20)
+    want20, plain20 = hold(f"rmat{MAIN_SCALE} core of the bench's last "
+                           "solve", *core20)
+    # a race would show as a launch that differs
+    differ = sum(not torch.equal(vc_core.vc_core_firstfit(*core20), want20)
+                 for _ in range(V1_REPEATS))
+    print(f"[16] V1 on the bench's core, {V1_REPEATS} more launches: "
+          f"{differ} differ from the plain loop's")
+    if differ:
+        fail(f"V1 gave another colouring in {differ} of {V1_REPEATS} "
+             "launches on the same core")
+    cores = {"rmat16": core16, "rmat20": core20}
     ms = {label: cuda_ms(lambda: vc_core.vc_core_firstfit(*inputs), reps=5)
-          for label, inputs in (("rmat16", core16), ("rmat20", core20))}
-    floor = {label: cuda_ms(lambda: vc_core.empty_steps(
-        inputs[0].shape[0], dev), reps=5)
-        for label, inputs in (("rmat16", core16), ("rmat20", core20))}
+          for label, inputs in cores.items()}
+    depth = {label: vc_core.core_depth(inputs[1], inputs[2])
+             for label, inputs in cores.items()}
+    # V1 on a chain of the core's D positions: D hand-overs and no more
+    floor = {label: cuda_ms(functools.partial(
+        vc_core.vc_core_firstfit, *v1_chain(depth[label], inputs[0].shape[1],
+                                            dev)), reps=5)
+        for label, inputs in cores.items()}
     bounds = {label: bound(v1_bytes(*inputs), 0)
-              for label, inputs in (("rmat16", core16), ("rmat20", core20))}
+              for label, inputs in cores.items()}
     print(f"[16] gpu: {gpu}")
-    for label, inputs, plain in (("rmat16", core16, plain16),
-                                 ("rmat20", core20, plain20)):
+    for label, inputs in cores.items():
         K, C = inputs[0].shape
+        plain = plain16 if label == "rmat16" else plain20
         print(f"[16] V1 at the {label} core (K {K}, C {C}, "
-              f"{inputs[2].numel()} upper edges): {ms[label]:.3f} ms, plain "
-              f"loop {plain:.1f} ms, bound {bounds[label][0]:.4f} ms "
-              f"({bounds[label][1]}), {K} empty steps {floor[label]:.3f} ms")
+              f"{inputs[2].numel()} lower edges, depth {depth[label]}): "
+              f"{ms[label]:.3f} ms ({1e3 * ms[label] / depth[label]:.3f} us a "
+              f"level), plain loop {plain:.1f} ms, bound "
+              f"{bounds[label][0]:.4f} ms ({bounds[label][1]}), a chain of "
+              f"{depth[label]} positions {floor[label]:.3f} ms")
     entry = {
         "name": "vc_core_firstfit", "route": "cuda", "source": V1_SOURCE,
         "replaces": V1_REPLACES, "launches": launches,
         "launches_by_path": {f"vc bench rmat{MAIN_SCALE}": launches},
-        **stats, "ms": ms["rmat20"], "plain_ms": plain20,
+        **stats, "repeats_differing": differ,
+        "ms": ms["rmat20"], "plain_ms": plain20,
         "bound_ms": bounds["rmat20"][0], "bound_by": bounds["rmat20"][1],
-        "steps_floor_ms": floor["rmat20"], "core_K": core20[0].shape[0],
-        "core_C": core20[0].shape[1],
+        "depth": depth["rmat20"], "depth_floor_ms": floor["rmat20"],
+        "us_per_level": 1e3 * ms["rmat20"] / depth["rmat20"],
+        "core_K": core20[0].shape[0], "core_C": core20[0].shape[1],
         "ms_rmat16": ms["rmat16"], "plain_ms_rmat16": plain16,
         "bound_ms_rmat16": bounds["rmat16"][0],
-        "steps_floor_ms_rmat16": floor["rmat16"],
+        "depth_rmat16": depth["rmat16"],
+        "depth_floor_ms_rmat16": floor["rmat16"],
+        "us_per_level_rmat16": 1e3 * ms["rmat16"] / depth["rmat16"],
         "core_C_rmat16": core16[0].shape[1], "library_ms": None}
     return entry, g16
 

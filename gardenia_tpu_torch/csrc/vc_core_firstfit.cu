@@ -1,39 +1,52 @@
-// V1: the sequential first-fit of vertex colouring's core pass, on Hopper.
+// V1: the sequential first-fit of vertex colouring's core pass, on Hopper,
+// computed along the dependency DAG of its order.
 //
 // Replaces no Pallas kernel: the XLA fori_loop `step` of
 // gardenia_tpu/solvers/vc.py:268-286 (make_core).  Once at most
 // VC_CORE_CAP vertices stay active, the solver orders them largest degree
-// first and colours them one after another, exactly, in K dependent steps:
+// first and colours them one after another, exactly:
 //
-//   for i in 0 .. K-1:
-//     c_i = the first zero of forb[i, :]
-//     if the row has no zero: chosen[i] = -1 (saturated), nothing changes
-//     else: chosen[i] = c_i and forb[j, c_i] = 1 for every core neighbour
-//           j > i of i
+//   for j in 0 .. K-1:
+//     row = forb[j, :] with 1 at chosen[i] for every core neighbour i < j
+//           of j that has a colour (chosen[i] >= 0)
+//     chosen[j] = the first zero of row, or -1 if it has none (saturated)
 //
-// forb (K, C) int8, 0 = free and 1 = forbidden, is updated in place (the
-// wrapper hands the kernel a copy); the core-core adjacency is a CSR of
-// its upper part (rowptr int64[K+1], col int32, every col[e] > its row):
-// only the rows after i are read after step i, so the lower part would be
-// dead weight.  A CSR and not the reference's dense (K, K) byte matrix:
-// a step then reads its row's neighbours and no more, K*K bytes (4 GB at
-// K = 65,536) are never built, and the updated table (K * C bytes, 16 MB
-// at C = 256) stays in L2.
+// The reference pushes (step i forbids its colour in every later
+// neighbour's row); pulling from the earlier neighbours makes the same
+// rows.  forb (K, C) int8, 0 = free and 1 = forbidden by non-core
+// neighbours, is only read.  The core-core adjacency is the CSR of its
+// lower part: rowptr int64[K+1], col int32, every col[e] < its row.
 //
-// What bounds it: the K steps are dependent (step i + 1 reads what step i
-// wrote), so the time is K times one step's latency (an L2 read of the
-// row, a warp reduction, the neighbour stores and two block barriers),
-// not the bytes.  The bytes its inputs need, K * C + 12 K + 4 * edges,
-// take microseconds at the card's memory rate; `gdn_vc_core_steps` runs
-// the same loop with no loads or stores, which measures the floor that
-// the barriers set.
+// What bounds it: position j waits only on its earlier neighbours, so the
+// chain of dependent work is the longest path D of the order's DAG (1,447
+// levels at the VC bench's R-MAT-20 core, K = 57,282), not K.  The kernel
+// costs about D hand-overs (a poll's L2 round trip, a search of a bitmap
+// in shared memory, a store) plus its bytes, K*C + 12 K + 4 * edges, which
+// take microseconds at the card's memory rate.
 //
-// Design, simple first: one CTA of 512 threads walks the steps.  Warp 0
-// finds the row's first zero (16-byte L2 reads, a lane's first zero byte
-// by the has-zero-byte bit trick, then a warp min) and lane 0 writes
-// chosen[i]; after a barrier every thread takes a share of the row's
-// neighbours and sets their byte of column c_i; a second barrier makes the
-// stores visible to the next step's search.
+// Design: a persistent grid of WARPS_PER_SM warps an SM (never more
+// than K), WARPS_PER_BLOCK a block.  A warp claims the next position j
+// by atomicAdd on a counter, so positions are claimed in increasing order
+// whatever the order in which blocks run.  At claim time, before it waits
+// on anything, the warp turns row j of forb into a bitmap of C bits in
+// shared memory (set bits past C), loads row j's neighbours in batches of
+// 32 x BATCH and their colours, and ORs in every colour that is final.
+// Only on the neighbours still pending (-2) do its lanes spin, with
+// relaxed device-scope loads (ld.relaxed.gpu: served by L2, never hoisted
+// out of the loop, never a stale L1 line).  When the last one is in, the
+// warp takes the first zero bit and publishes chosen[j] with a relaxed
+// device-scope store.  The value itself is the message, so no fence is
+// needed.  A neighbour's colour is final once it is not -2; -1
+// (saturated) forbids nothing.
+//
+// Why it cannot deadlock: a warp holds one position at a time and waits
+// only on positions i < j, which were claimed before j by warps that were
+// running when they claimed them.  The lowest unfinished claimed position
+// has every earlier position finished, so it can always go on; blocks not
+// yet resident have claimed nothing.  No cooperative launch is needed.  A
+// column that is not below its row would break that argument, so it is
+// ignored; and a wait longer than SPIN_LIMIT polls traps (a launch error)
+// instead of hanging.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -41,76 +54,118 @@
 
 namespace {
 
-constexpr int THREADS = 512;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NONE = INT_MAX;
+constexpr int PENDING = -2;          // chosen[j] before j is coloured
+constexpr int BATCH = 8;             // neighbours a lane has in flight
+constexpr int MAX_C = 16384;         // the solver's palette cap
+// The grid, the fastest of scripts/probe_v1.py's sweep at the VC bench's
+// core (2-16 warps an SM, with and without a backoff between polls):
+// more warps only poll, far ahead of the lowest pending position.
+constexpr int WARPS_PER_BLOCK = 4;
+constexpr int WARPS_PER_SM = 4;
+constexpr long long SPIN_LIMIT = 1ll << 24;
 
-// index of the first zero byte of the 16 bytes (little-endian), or 16
-__device__ __forceinline__ int first_zero16(const int4 v) {
-  const unsigned w[4] = {static_cast<unsigned>(v.x), static_cast<unsigned>(v.y),
-                         static_cast<unsigned>(v.z), static_cast<unsigned>(v.w)};
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// bit k set where byte k of w is nonzero (k = 0 .. 3)
+__device__ __forceinline__ unsigned nonzero4(unsigned w) {
+  // bit 7 of a byte: its low seven bits carry into it, or it was set
+  const unsigned t = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+  return ((t >> 7) & 1u) | ((t >> 14) & 2u) | ((t >> 21) & 4u) |
+         ((t >> 28) & 8u);
+}
+
+// bit k set where byte k of the 16 bytes is nonzero (k = 0 .. 15)
+__device__ __forceinline__ unsigned nonzero16(const int4 v) {
+  return nonzero4(static_cast<unsigned>(v.x)) |
+         (nonzero4(static_cast<unsigned>(v.y)) << 4) |
+         (nonzero4(static_cast<unsigned>(v.z)) << 8) |
+         (nonzero4(static_cast<unsigned>(v.w)) << 12);
+}
+
+__global__ void vc_core_kernel(const int8_t* __restrict__ forb,
+                               const long long* __restrict__ rowptr,
+                               const int* __restrict__ col, int* chosen,
+                               int* counter, int K, int C, bool vec) {
+  extern __shared__ unsigned smem[];
+  const int lane = threadIdx.x & 31;
+  const int nw = (C + 31) >> 5;          // bitmap words a warp
+  unsigned* bm = smem + (threadIdx.x >> 5) * nw;
+  for (;;) {
+    int j = 0;
+    if (lane == 0) j = atomicAdd(counter, 1);
+    j = __shfl_sync(FULL, j, 0);
+    if (j >= K) return;
+
+    // the row's non-core forbidden colours as bits; bits past C are set
+    const int8_t* row = forb + static_cast<size_t>(j) * C;
+    if (vec) {                           // C % 32 == 0, 16-byte rows
+      const int4* r4 = reinterpret_cast<const int4*>(row);
+      for (int w = lane; w < nw; w += 32)
+        bm[w] = nonzero16(__ldg(r4 + 2 * w)) |
+                (nonzero16(__ldg(r4 + 2 * w + 1)) << 16);
+    } else {
+      for (int w = lane; w < nw; w += 32) {
+        unsigned bits = 0;
+        for (int k = 0; k < 32; ++k) {
+          const int c = 32 * w + k;
+          if (c >= C || __ldg(row + c) != 0) bits |= 1u << k;
+        }
+        bm[w] = bits;
+      }
+    }
+    __syncwarp();
+
+    // pull the earlier neighbours' colours: start a batch's loads, then
+    // wait only on those still pending
+    const long long e1 = rowptr[j + 1];
+    for (long long base = rowptr[j]; base < e1; base += 32 * BATCH) {
+      int nb[BATCH], c[BATCH];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    // the lowest flagged byte is the lowest zero byte: a nonzero byte
-    // below it borrows nothing and has no flag
-    const unsigned t = (w[q] - 0x01010101u) & ~w[q] & 0x80808080u;
-    if (t) return 4 * q + ((__ffs(t) - 1) >> 3);
-  }
-  return 16;
-}
+      for (int b = 0; b < BATCH; ++b) {
+        const long long e = base + 32 * b + lane;
+        const int i = e < e1 ? __ldg(col + e) : -1;
+        nb[b] = (i >= 0 && i < j) ? i : -1;
+      }
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b)
+        c[b] = nb[b] >= 0 ? ld_relaxed(chosen + nb[b]) : -1;
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        long long spins = 0;
+        while (c[b] == PENDING) {
+          if (++spins > SPIN_LIMIT) __trap();
+          c[b] = ld_relaxed(chosen + nb[b]);
+        }
+        if (c[b] >= 0) atomicOr(bm + (c[b] >> 5), 1u << (c[b] & 31));
+      }
+    }
+    __syncwarp();
 
-// first zero of a row of C bytes, searched by one warp (NONE: no zero)
-__device__ __forceinline__ int first_zero(const int8_t* row, int C, int lane) {
-  int best = NONE;
-  if ((C & 15) == 0) {
-    const int4* r4 = reinterpret_cast<const int4*>(row);
-    for (int k = lane; k < C / 16; k += 32) {
-      const int z = first_zero16(__ldcg(r4 + k));
-      if (z < 16) {
-        best = 16 * k + z;
+    // the first zero bit: lanes take interleaved words, so the least
+    // lane-first is the first
+    int best = NONE;
+    for (int w = lane; w < nw; w += 32) {
+      const unsigned free_bits = ~bm[w];
+      if (free_bits) {
+        best = 32 * w + __ffs(free_bits) - 1;
         break;
       }
     }
-  } else {
-    for (int k = lane; k < C; k += 32)
-      if (__ldcg(reinterpret_cast<const signed char*>(row) + k) == 0) {
-        best = k;
-        break;
-      }
-  }
-  // lanes take interleaved chunks, so the least lane-first is the first
-  return __reduce_min_sync(FULL, best);
-}
-
-template <bool kWork>
-__global__ void __launch_bounds__(THREADS, 1)
-    vc_core_kernel(int8_t* forb, const long long* __restrict__ rowptr,
-                   const int* __restrict__ col, int* __restrict__ chosen,
-                   int K, int C) {
-  __shared__ int s_c;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  for (int i = 0; i < K; ++i) {
-    if (tid < 32) {
-      const int c = kWork ? first_zero(forb + static_cast<size_t>(i) * C, C,
-                                       lane)
-                          : i;
-      if (lane == 0) {
-        if (kWork) chosen[i] = c == NONE ? -1 : c;
-        s_c = c;
-      }
-    }
-    __syncthreads();
-    const int c = s_c;
-    if (kWork && c != NONE) {
-      const long long e1 = rowptr[i + 1];
-      for (long long e = rowptr[i] + tid; e < e1; e += THREADS)
-        forb[static_cast<size_t>(col[e]) * C + c] = 1;
-    }
-    // the stores are seen by the next search; s_c is read before it
-    // changes
-    __syncthreads();
-    if (!kWork && tid == 0 && c < 0) chosen[0] = c;  // keeps the loop
+    best = __reduce_min_sync(FULL, best);
+    if (lane == 0) st_relaxed(chosen + j, best == NONE ? -1 : best);
+    __syncwarp();                        // bm is read before it is reset
   }
 }
 
@@ -118,26 +173,34 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// forb (K, C) int8 in place, rowptr int64[K+1], col int32, chosen
-// int32[K]; K >= 0, C >= 1.  Returns cudaGetLastError() after the launch
-// (0 on success); the launch is asynchronous on `stream`.
-int gdn_vc_core_firstfit(void* forb, const void* rowptr, const void* col,
-                         void* chosen, int K, int C, void* stream) {
+// forb (K, C) int8 (read only), rowptr int64[K+1], col int32 (the lower
+// CSR), chosen int32[K] filled with -2 and counter int32[1] zeroed by the
+// caller, on the current device.  K >= 0, 1 <= C <= 16384.  Returns
+// cudaGetLastError() after the launch (0 on success); the launch is
+// asynchronous on `stream`.
+int gdn_vc_core_firstfit(const void* forb, const void* rowptr,
+                         const void* col, void* chosen, void* counter, int K,
+                         int C, void* stream) {
   if (K <= 0) return 0;
-  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  vc_core_kernel<true><<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(forb), static_cast<const long long*>(rowptr),
-      static_cast<const int*>(col), static_cast<int*>(chosen), K, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same kernel's K steps with no search and no stores: its barriers
-// and shared-memory hand-over alone (the floor of the K dependent steps).
-// sink int32[1] is never written (no step index is negative).
-int gdn_vc_core_steps(int K, void* sink, void* stream) {
-  if (K <= 0) return 0;
-  vc_core_kernel<false><<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      nullptr, nullptr, nullptr, static_cast<int*>(sink), K, 1);
+  if (C < 1 || C > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int full = (sms * WARPS_PER_SM + WARPS_PER_BLOCK - 1) /
+                   WARPS_PER_BLOCK;
+  const int needed = (K - 1) / WARPS_PER_BLOCK + 1;
+  const int blocks = full < needed ? full : needed;
+  const bool vec =
+      (C & 31) == 0 && (reinterpret_cast<uintptr_t>(forb) & 15) == 0;
+  const size_t shared =
+      static_cast<size_t>(WARPS_PER_BLOCK) * ((C + 31) >> 5) * 4;
+  vc_core_kernel<<<blocks, 32 * WARPS_PER_BLOCK, shared,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(forb), static_cast<const long long*>(rowptr),
+      static_cast<const int*>(col), static_cast<int*>(chosen),
+      static_cast<int*>(counter), K, C, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,35 +4,41 @@ counterpart of the XLA fori_loop `step` of gardenia_tpu/solvers/vc.py:
 
     chosen = vc_core_firstfit(forb, rowptr, col)
 
-colours K core vertices one after another: in order i = 0 .. K-1, c_i is
-the first zero of row i of `forb` (K, C) int8 (1 = forbidden); a row with
-no zero gives chosen[i] = -1 (saturated) and changes nothing, else
-chosen[i] = c_i and column c_i of every core neighbour j > i of i becomes
-forbidden.  The core-core adjacency is a CSR of its upper part (rowptr
-int64[K+1], col int32 with col > its row; `core_csr` builds it): only
-the later rows are read after step i.  `forb` is not modified.
+colours K core vertices one after another: in order j = 0 .. K-1, row j
+of `forb` (K, C) int8 (0 = free, 1 = forbidden) with the colours of j's
+earlier core neighbours set, and chosen[j] its first zero, or -1
+(saturated) where it has none; a saturated neighbour forbids nothing.
+The reference pushes each step's colour into the later neighbours' rows;
+pulling it from the earlier ones gives the same rows.  The core-core
+adjacency is a CSR of its lower part (rowptr int64[K+1], col int32 with
+col < its row; `core_csr` builds it).  `forb` is not modified.
 
-`vc_core_firstfit` launches V1 (csrc/vc_core_firstfit.cu, one CTA walking
-the K dependent steps) on CUDA tensors, or raises; on CPU tensors, and
-only there, it takes `vc_core_firstfit_plain`, the same loop in torch ops
-(some eight launches a step on a card, which is why V1 exists: 65,536
-steps a solve at R-MAT-20).  LAUNCHES counts V1's launches, never the
-plain version's, so a run can show that its main path went through V1.
+`vc_core_firstfit` launches V1 (csrc/vc_core_firstfit.cu) on CUDA
+tensors, or raises: a persistent grid of warps claims positions in order
+and colours each as soon as its earlier neighbours are done, so it costs
+about `core_depth` hand-overs (the longest chain of the order's DAG), not
+K steps.  On CPU tensors, and only there, it takes
+`vc_core_firstfit_plain`, the same loop in torch ops (some seven launches
+a position on a card).  LAUNCHES counts V1's launches, never the plain
+version's, so a run can show that its main path went through V1.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LAUNCHES = 0
+PENDING = -2              # chosen[j] until the kernel colours j
+MAX_C = 16384             # the kernel's palette limit, the solver's cap
 
 
 def core_csr(rows: torch.Tensor, cols: torch.Tensor, K: int):
-    """(rowptr i64[K+1], col i32) of the upper part of the core-core
+    """(rowptr i64[K+1], col i32) of the lower part of the core-core
     adjacency given as position pairs (rows, cols) in [0, K): the pairs
-    with cols > rows, ordered by (row, col).  Each undirected edge of a
+    with cols < rows, ordered by (row, col).  Each undirected edge of a
     symmetric graph appears twice among the pairs and once in the CSR."""
-    keep = cols > rows
+    keep = cols < rows
     a, b = rows[keep].long(), cols[keep].long()
     order = torch.argsort(a * K + b)
     rowptr = torch.zeros(K + 1, dtype=torch.int64, device=rows.device)
@@ -40,24 +46,45 @@ def core_csr(rows: torch.Tensor, cols: torch.Tensor, K: int):
     return rowptr, b[order].int()
 
 
+def core_levels(rowptr: torch.Tensor, col: torch.Tensor) -> np.ndarray:
+    """int64[K]: each position's level in the order's dependency DAG given
+    by the lower CSR, 1 + the deepest earlier neighbour's (1 with none).
+    On the host."""
+    rp = rowptr.cpu().numpy()
+    cl = col.cpu().numpy()
+    level = np.zeros(len(rp) - 1, np.int64)
+    for j in range(len(level)):
+        nb = cl[rp[j]:rp[j + 1]]
+        level[j] = 1 + (int(level[nb].max()) if nb.size else 0)
+    return level
+
+
+def core_depth(rowptr: torch.Tensor, col: torch.Tensor) -> int:
+    """D, the DAG's levels: the most positions on a chain j_1 < j_2 < ...
+    of neighbours (K with a chain or a clique, 1 with no edge, 0 when
+    K = 0).  What V1's time goes with."""
+    level = core_levels(rowptr, col)
+    return int(level.max()) if level.size else 0
+
+
 def vc_core_firstfit_plain(forb: torch.Tensor, rowptr: torch.Tensor,
                            col: torch.Tensor) -> torch.Tensor:
-    """int32[K] in torch ops, step by step: the first minimum of the row
-    (torch.argmin returns the first, as jnp.argmin does), saturated when
-    it is not 0."""
-    forb = forb.clone()
-    K = forb.shape[0]
+    """int32[K] in torch ops, position by position: the row with its
+    earlier neighbours' colours set (a saturated -1 goes to a spare
+    column), then its first minimum (torch.argmin returns the first, as
+    jnp.argmin does), saturated when that is not 0."""
+    K, C = forb.shape
     chosen = torch.full((K,), -1, dtype=torch.int32, device=forb.device)
+    row = torch.empty(C + 1, dtype=torch.int8, device=forb.device)
     rp = rowptr.tolist()
     col = col.long()
-    for i in range(K):
-        row = forb[i]
-        c = torch.argmin(row)
-        free = row[c] == 0
-        chosen[i] = torch.where(free, c.int(), -1)
-        nb = col[rp[i]:rp[i + 1]]
-        if nb.numel():
-            forb[nb, c] = torch.maximum(forb[nb, c], free.to(torch.int8))
+    for j in range(K):
+        row[:C] = forb[j]
+        if rp[j + 1] > rp[j]:
+            c = chosen[col[rp[j]:rp[j + 1]]].long()
+            row[torch.where(c >= 0, c, C)] = 1
+        c = torch.argmin(row[:C])
+        chosen[j] = torch.where(row[c] == 0, c.int(), -1)
     return chosen
 
 
@@ -86,7 +113,7 @@ def vc_core_firstfit(forb: torch.Tensor, rowptr: torch.Tensor,
     """int32[K]: each core row's first-fit colour, -1 where saturated.
 
     forb:   (K, C) int8, 0 = free, 1 = forbidden (by non-core neighbours).
-    rowptr: int64[K+1], col: int32 — the adjacency's upper part (core_csr).
+    rowptr: int64[K+1], col: int32 — the adjacency's lower part (core_csr).
     """
     global LAUNCHES
     _check(forb, rowptr, col)
@@ -98,33 +125,21 @@ def vc_core_firstfit(forb: torch.Tensor, rowptr: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     K, C = forb.shape
-    if K >= 2 ** 31 or C >= 2 ** 31:
-        raise ValueError(f"forb shape {tuple(forb.shape)} exceeds int32")
+    if K >= 2 ** 31 or C > MAX_C:
+        raise ValueError(f"forb shape {tuple(forb.shape)}: V1 takes K < "
+                         f"2^31 and C <= {MAX_C}")
     from gardenia_tpu_torch.ops import _build
 
-    chosen = torch.empty(K, dtype=torch.int32, device=forb.device)
+    chosen = torch.full((K,), PENDING, dtype=torch.int32, device=forb.device)
     if K == 0:
         return chosen
-    work = forb.contiguous().clone()     # the kernel updates its copy
+    forb = forb.contiguous()             # read only: no copy when it is
+    counter = torch.zeros(1, dtype=torch.int32, device=forb.device)
     with torch.cuda.device(forb.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.lib().gdn_vc_core_firstfit(
-            work.data_ptr(), rowptr.data_ptr(), col.data_ptr(),
-            chosen.data_ptr(), K, C, stream)
+            forb.data_ptr(), rowptr.data_ptr(), col.data_ptr(),
+            chosen.data_ptr(), counter.data_ptr(), K, C, stream)
     _build.check(code, "vc_core_firstfit")
     LAUNCHES += 1
     return chosen
-
-
-def empty_steps(K: int, device) -> None:
-    """Launch V1's loop of K steps with no search and no stores: the floor
-    that its dependent steps' barriers set.  Not counted in LAUNCHES."""
-    from gardenia_tpu_torch.ops import _build
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError("empty_steps runs V1's loop on a CUDA device")
-    sink = torch.zeros(1, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.lib().gdn_vc_core_steps(K, sink.data_ptr(), stream)
-    _build.check(code, "vc_core_steps")

@@ -110,8 +110,9 @@ def core_inputs(src, dst, deg, colors, active, C: int):
     """(ids i64[k], forb (k, C) int8, rowptr, col) of the core pass over
     the k active vertices: ids ordered largest degree first (a stable
     sort, ties in id order), their rows forbidden by their non-core
-    neighbours' colours, and the upper CSR of the core-core adjacency by
-    position in that order (ops/vc_core.core_csr)."""
+    neighbours' colours, and the lower CSR of the core-core adjacency by
+    position in that order (ops/vc_core.core_csr): each position's earlier
+    neighbours, whose colours V1 pulls."""
     m = colors.shape[0]
     ids = torch.nonzero(active).squeeze(1)
     k = ids.shape[0]
@@ -160,7 +161,7 @@ def vc_solver(g, *, max_color: int = T.MAXCOLOR, device="cuda") -> VCResult:
     src, dst = views.coo(g, dev)
     deg = views.degrees(g, dev)
     tiers = sparse_tiers(m, g.nnz)
-    # the core pass's K sequential steps: clamped to the graph
+    # the most vertices a core pass takes: clamped to the graph
     K = min(VC_CORE_CAP, T.next_pow2(max(m, 2)))
     C = max_color
     if max_color == T.MAXCOLOR:

@@ -5,7 +5,9 @@ spills, core, the hand-off to the core, palette escalation and core
 saturation), each tier forced by setting the same module constants in
 both packages.  Every colouring is also held to oracles.vc_check.  The
 core pass's sequential first-fit (ops/vc_core, kernel V1's plain version
-here) is held to a numpy greedy on hand-made cases."""
+here, which pulls the earlier neighbours' colours) is held to a numpy
+greedy that pushes each colour into the later rows, on hand-made cases and
+on random cores drawn from fixed seeds."""
 
 import numpy as np
 import pytest
@@ -147,7 +149,8 @@ def test_vc_default_device_is_cuda():
 # --- ops/vc_core: the core pass's first-fit ---------------------------------
 
 def greedy(forb: np.ndarray, adj: np.ndarray) -> np.ndarray:
-    """The numpy sequential greedy over rows in order."""
+    """The numpy sequential greedy over rows in order, in push form: each
+    colour is forbidden in every neighbour's row as it is chosen."""
     forb = forb.astype(bool).copy()
     out = np.full(len(forb), -1, np.int32)
     for i in range(len(forb)):
@@ -170,6 +173,11 @@ def _cases():
     sat = np.zeros((3, 4), np.int8)
     sat[0] = 1
     sat[1, [0, 1, 3]] = 1
+    allf = (rng.random((40, 20)) < 0.4).astype(np.int8)
+    allf[::5] = 1                        # rows with no free colour
+    chain = np.eye(30, k=1, dtype=bool)
+    late = np.zeros((6, 40), np.int8)
+    late[:, :33] = 1                     # the first zero past the pulled ones
     return {
         "K1": (np.zeros((1, 8), np.int8), np.zeros((1, 1), bool)),
         "saturated_row_C4": (sat, ~np.eye(3, dtype=bool)),
@@ -179,6 +187,9 @@ def _cases():
                                       ~np.eye(12, dtype=bool)),
         "random": ((rng.random((60, 16)) < 0.3).astype(np.int8),
                    sym | sym.T),
+        "all_forbidden_rows_C20": (allf, sym[:40, :40] | sym[:40, :40].T),
+        "chain": (np.zeros((30, 4), np.int8), chain | chain.T),
+        "first_zero_past_the_pulled": (late, ~np.eye(6, dtype=bool)),
     }
 
 
@@ -193,11 +204,54 @@ def test_vc_core_plain_matches_numpy_greedy(name):
     assert vc_core.LAUNCHES == 0                     # no kernel on the CPU
 
 
-def test_vc_core_csr_keeps_the_upper_part():
+@pytest.mark.parametrize("seed", range(60))
+def test_vc_core_plain_matches_numpy_greedy_on_random_cores(seed):
+    """Random cores: K 1-48, C 1-40 (C % 16 != 0 among them), edge density
+    from none to a clique, rows from free to all forbidden."""
+    rng = np.random.default_rng(seed)
+    K, C = int(rng.integers(1, 49)), int(rng.integers(1, 41))
+    p_edge, p_forb = rng.choice([0.0, 1.0, rng.random()], 2)
+    forb = (rng.random((K, C)) < p_forb).astype(np.int8)
+    upper = np.triu(rng.random((K, K)) < p_edge, 1)
+    adj = upper | upper.T
+    rowptr, col = csr(adj)
+    got = vc_core.vc_core_firstfit(torch.from_numpy(forb), rowptr, col)
+    np.testing.assert_array_equal(got.numpy(), greedy(forb, adj))
+
+
+def test_vc_core_csr_keeps_the_lower_part():
     rowptr, col = vc_core.core_csr(torch.tensor([0, 1, 1, 2, 2, 0]),
                                    torch.tensor([1, 0, 2, 1, 0, 2]), 4)
-    assert rowptr.tolist() == [0, 2, 3, 3, 3]
-    assert col.tolist() == [1, 2, 2] and col.dtype == torch.int32
+    assert rowptr.tolist() == [0, 0, 1, 3, 3]
+    assert col.tolist() == [0, 0, 1] and col.dtype == torch.int32
+    assert rowptr.dtype == torch.int64
+
+
+def _depth_by_recursion(adj: np.ndarray) -> int:
+    """The longest chain of increasing neighbours, memoised from the end."""
+    K = len(adj)
+    longest = [1] * K
+    for j in reversed(range(K)):
+        later = [longest[i] for i in np.flatnonzero(adj[j]) if i > j]
+        longest[j] = 1 + max(later, default=0)
+    return max(longest, default=0)
+
+
+@pytest.mark.parametrize("name,adj,want", [
+    ("chain", (lambda a: a | a.T)(np.eye(9, k=1, dtype=bool)), 9),
+    ("clique", ~np.eye(7, dtype=bool), 7),
+    ("no_edges", np.zeros((5, 5), bool), 1),
+    ("K0", np.zeros((0, 0), bool), 0),
+    ("random", None, None),
+])
+def test_vc_core_depth(name, adj, want):
+    if adj is None:
+        rng = np.random.default_rng(11)
+        upper = np.triu(rng.random((80, 80)) < 0.08, 1)
+        adj = upper | upper.T
+        want = _depth_by_recursion(adj)
+    rowptr, col = csr(adj)
+    assert vc_core.core_depth(rowptr, col) == want
 
 
 def test_vc_core_wrapper_rejects_bad_arguments():
@@ -212,5 +266,3 @@ def test_vc_core_wrapper_rejects_bad_arguments():
         vc_core.vc_core_firstfit(forb, rowptr, col.long())
     with pytest.raises(ValueError):
         vc_core.vc_core_firstfit(forb, rowptr[:3], col)
-    with pytest.raises(ValueError):
-        vc_core.empty_steps(4, "cpu")
