@@ -148,7 +148,29 @@ result:
   18. SGD at R-MAT-16, 4 epochs, trace and factors against a float64
      numpy/scipy replica of the epoch; the bench (--kernel sgd) at
      R-MAT-20, 10 epochs, its trace finite and monotone, its final RMSE
-     beside the TPU record's.
+     beside the TPU record's;
+  19. k-clique counting: kernel Q1 (per-vertex counts in each vertex's
+     local bitmap graph) against its plain version (the level expansion)
+     vertex by vertex, exactly, at k = 3, 4 and 5 on hand-made cases (no
+     edge; cliques, also against C(n-1-u, k-1); K_{n,n} with random edges
+     inside one side, whose other side has out-degree exactly 32, 33 and
+     1024 -- the class edges -- and 1025, which must take the expansion)
+     and on R-MAT-16; kcl_solver at R-MAT-16 against the TPU record
+     (291,554,165); the main path: the port's bench (--kernel kcl) at
+     R-MAT-20, Q1's launches set to 0 before and read after (classes x
+     solves), its count held to the TPU record (17,113,600,315) on route
+     q1; k = 3 through Q1 (force_expand) against tc_solver at R-MAT-16
+     and R-MAT-20; Q1 timed by CUDA events at R-MAT-20 and R-MAT-16 beside
+     one call of the plain version (held equal per vertex), and its bound
+     (the CSR, vertex lists and counts once; the smaller side's
+     membership tests and the word ANDs);
+  20. the motif census: the port's bench (--kernel motif) at R-MAT-16,
+     its census equal to the TPU record; the wedge streams' per-edge
+     triangles against the card's wedge sweep at R-MAT-16 and R-MAT-14
+     and their 4-cycles against the numpy codegree sort at R-MAT-14; the
+     3-census at R-MAT-20; the bench at R-MAT-20, its 4-cliques equal to
+     kcl's record and its triangles over the edges 3 x 424,573,866; the
+     host-oracle branch must not run.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -213,6 +235,12 @@ TC_KERNELS = {
 V1_SOURCE = "gardenia_tpu_torch/csrc/vc_core_firstfit.cu"
 V1_REPLACES = "gardenia_tpu/solvers/vc.py:268"
 V1_REPEATS = 20             # launches on one core that must all agree
+# Q1, the per-vertex k-clique count in local bitmap graphs: it replaces the
+# XLA expansion, mask and rotation passes of the JAX package's kCL (no
+# Pallas kernel)
+Q1_SOURCE = "gardenia_tpu_torch/csrc/kcl_local_count.cu"
+Q1_REPLACES = "gardenia_tpu/mining/kcl.py:175"
+TRI_CHUNK = 1 << 23         # edge_triangle_counts' step on the card, wedges
 # (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
 # default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
 # 3 sparse and a core pass of 468 (counted on the CPU)
@@ -1523,6 +1551,287 @@ def sgd_phase(dev, gpu: str, g, g16) -> None:
         fail("the SGD bench's trace is not finite and monotone")
 
 
+def sym_graph(n: int, src, dst):
+    """The port's symmetric Graph of n vertices over the edges (src, dst),
+    deduplicated, without self loops."""
+    from gardenia_tpu_torch.core import build
+    from gardenia_tpu_torch.core.graph import Graph
+    s, d, _ = build.clean_edges(np.asarray(src), np.asarray(dst), num_rows=n,
+                                symmetrize=True)
+    rp, ci, _ = build.coo_to_csr(n, s, d, sorted_by_src=True)
+    return Graph(rp, ci, num_cols=n, symmetric=True)
+
+
+def kcl_hand_cases():
+    """(label, Graph, the per-vertex counts at k or None) edge cases of
+    Q1: no edge; cliques, whose DAG is by id (equal degrees), so vertex u
+    starts C(n-1-u, k-1) k-cliques; K_{n,n} with a seeded random graph of
+    4n edges inside its second side, whose first-side vertices have
+    out-degree exactly n (32 and 33: the edges of the warp and the first
+    CTA class; 1024, Q1's limit; 1025 takes the expansion) and that random
+    graph, oriented, as their local graph."""
+    from math import comb
+    rng = np.random.default_rng(19)
+
+    def clique(n):
+        a, b = np.triu_indices(n, 1)
+        return sym_graph(n, a, b), lambda k: np.array(
+            [comb(n - 1 - u, k - 1) for u in range(n)], np.int64)
+
+    def biclique_plus(n):
+        a, b = np.divmod(np.arange(n * n), n)
+        x, y = rng.integers(n, 2 * n, (2, 4 * n))
+        return sym_graph(2 * n, np.concatenate([a, x]),
+                         np.concatenate([n + b, y])), None
+
+    return ([("no edge, 64 vertices", sym_graph(64, [], []),
+              lambda k: np.zeros(64, np.int64))]
+            + [(f"K_{n}", *clique(n)) for n in (5, 33, 64)]
+            + [(f"K_{{{n},{n}}} + 4n random edges inside, d = {n}",
+                *biclique_plus(n)) for n in (32, 33, 1024, 1025)])
+
+
+def q1_bytes(ldag, k: int) -> int:
+    """What Q1's inputs and output need: the DAG's CSR, the launched
+    vertex lists and the counts, each once."""
+    from gardenia_tpu_torch.ops import kcl_count
+    verts = sum(end - first for first, end, _ in
+                kcl_count.class_slices(ldag, k))
+    return (8 * ldag.rowptr.numel() + 4 * ldag.colidx.numel() + 4 * verts
+            + 8 * (ldag.rowptr.numel() - 1))
+
+
+def q1_ops(ldag, k: int, lower_counts: dict) -> int:
+    """The operations Q1's count needs on this DAG: a membership test a
+    pair of an arc (u, w) of a launched u, min(d(u), d(w)) of them (the
+    smaller side), and a word AND a W(u)-word row for each (l-1)-clique
+    that a level extends, l = 4 .. k (lower_counts[l - 1]: the per-vertex
+    (l-1)-clique counts, from Q1)."""
+    import torch
+    rp, ci = ldag.rowptr, ldag.colidx
+    deg = rp[1:] - rp[:-1]
+    src = torch.repeat_interleave(torch.arange(deg.numel(), device=rp.device),
+                                  deg)
+    tests = int(torch.where(deg[src] >= k - 1,
+                            torch.minimum(deg[src], deg[ci.long()]), 0).sum())
+    words = (deg + 31) // 32
+    ands = sum(int((lower_counts[l - 1] * words).sum())
+               for l in range(4, k + 1))
+    return tests + ands
+
+
+def kcl_phase(dev, gpu: str, g, g16):
+    """Phase 19: Q1 against its plain version per vertex (hand cases,
+    R-MAT-16 at k = 3, 4, 5), kcl_solver at R-MAT-16 against the TPU
+    record, the R-MAT-20 kcl bench (the main path) with Q1's launches,
+    Q1 timed beside its plain version and its bound, and k = 3 through
+    Q1 against tc_solver.  Returns Q1's entry of the kernels line."""
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.mining import kcl
+    from gardenia_tpu_torch.ops import kcl_count
+    from gardenia_tpu_torch.solvers.tc import tc_solver
+    limits = kcl_count.kernel_limits()
+    print(f"[19] Q1's limits as the library exports them: "
+          f"{json.dumps(limits)}")
+    stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+
+    def hold(label, graph, k, want=None):
+        """Q1 and its plain version on the same DAG, per vertex, exact
+        (and the closed form where given); the counts, Q1's classes and
+        the plain version's ms."""
+        ldag = kcl.local_dag(graph, dev)
+        route = kcl_count.route(ldag.max_degree, k)
+        if route != "q1":
+            got = kcl.kcl_solver(graph, k, force_expand=True, device=dev)
+            print(f"[19] {label}, k {k}: widest out-degree "
+                  f"{ldag.max_degree}, route {kcl.LAST_ROUTE}, {got} cliques")
+            if kcl.LAST_ROUTE != "expand":
+                fail(f"{label}: out-degree {ldag.max_degree} did not take "
+                     "the expansion")
+            return None, None, None
+        before = kcl_count.LAUNCHES
+        got = kcl_count.local_count(ldag, k)
+        launched = kcl_count.LAUNCHES - before
+        plain, plain_ms = timed_once(
+            lambda: kcl_count.local_count_plain(ldag, k))
+        bad = int((got != plain).sum())
+        if want is not None:
+            bad += int((got.cpu().numpy() != want(k)).sum())
+        err = int((got - plain).abs().max()) if got.numel() else 0
+        stats["cases"] += 1
+        stats["mismatches"] += bad
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        classes = {c: end - first for first, end, c in
+                   kcl_count.class_slices(ldag, k)}
+        print(f"[19] Q1 {label}, k {k}: {int(got.sum())} cliques, widest "
+              f"out-degree {ldag.max_degree}, {launched} launches, vertices "
+              f"by class {json.dumps(classes)}; {bad} vertices differ from "
+              f"the plain version's (plain {plain_ms:.1f} ms)")
+        if bad or launched != len(classes):
+            fail(f"Q1 disagrees with its plain version on {label} at k {k}")
+        return got, classes, plain_ms
+
+    for label, graph, want in kcl_hand_cases():
+        for k in (3, 4, 5):
+            hold(label, graph, k, want)
+    counts16, plain16_ms = {}, {}
+    for k in (3, 4, 5):
+        counts16[k], _, plain16_ms[k] = hold(f"rmat{SMOKE_SCALE}", g16, k)
+    total16 = kcl.kcl_solver(g16, 4, device=dev)
+    print(f"[19] kcl_solver rmat{SMOKE_SCALE} k 4: {total16} (the TPU "
+          f"record: {bench.KCL4_RECORD[SMOKE_SCALE]}), route {kcl.LAST_ROUTE}")
+    if total16 != bench.KCL4_RECORD[SMOKE_SCALE] or kcl.LAST_ROUTE != "q1":
+        fail("kcl_solver at R-MAT-16 misses the record or Q1")
+
+    # the main path: the kcl bench, Q1's launches counted around it
+    kcl_count.LAUNCHES = 0
+    record, _, total = bench.bench_kcl(MAIN_SCALE, dev, g=g)
+    launches = kcl_count.LAUNCHES
+    print(json.dumps(record))
+    ldag = kcl.local_dag(g, dev)
+    classes = {c: end - first for first, end, c in
+               kcl_count.class_slices(ldag, 4)}
+    solves = sum(bench.mining_repeats(MAIN_SCALE).values())
+    print(f"[19] kcl bench rmat{MAIN_SCALE}: {total} 4-cliques (the TPU "
+          f"record: {bench.KCL4_RECORD[MAIN_SCALE]}), route "
+          f"{record['detail']['route']}, Q1 launches {launches} over {solves}"
+          f" solves, vertices by class {json.dumps(classes)}")
+    if not (record["detail"]["correct"] and launches > 0
+            and launches == solves * len(classes)):
+        fail("the kcl bench missed the record, Q1, or its launches")
+    # k = 3 through Q1 against the triangle route
+    for label, graph, want in ((f"rmat{SMOKE_SCALE}", g16, None),
+                               (f"rmat{MAIN_SCALE}", g,
+                                bench.TC_RECORD[MAIN_SCALE])):
+        tri = kcl.kcl_solver(graph, 3, force_expand=True, device=dev)
+        route = kcl.LAST_ROUTE
+        tc = tc_solver(graph, device=dev)
+        print(f"[19] kcl_solver {label} k 3 force_expand: {tri} on route "
+              f"{route}; tc_solver {tc}" + (f"; the record {want}"
+                                            if want else ""))
+        if tri != tc or route != "q1" or (want and tri != want):
+            fail(f"k = 3 through Q1 disagrees with tc_solver on {label}")
+
+    # Q1 timed on the main path's DAG, beside its plain version; the bound
+    lower = {3: kcl_count.local_count(ldag, 3)}
+    ms = cuda_ms(lambda: kcl_count.local_count(ldag, 4), reps=5, warmup=1)
+    ms16 = cuda_ms(lambda: kcl_count.local_count(kcl.local_dag(g16, dev), 4),
+                   reps=5, warmup=1)
+    plain20, plain20_ms = timed_once(
+        lambda: kcl_count.local_count_plain(ldag, 4))
+    got20 = kcl_count.local_count(ldag, 4)
+    bad20 = int((got20 != plain20).sum())
+    stats["cases"] += 1
+    stats["mismatches"] += bad20
+    stats["max_abs_err"] = max(stats["max_abs_err"],
+                               int((got20 - plain20).abs().max()))
+    b_ms, b_by = bound(q1_bytes(ldag, 4), q1_ops(ldag, 4, lower))
+    ldag16 = kcl.local_dag(g16, dev)
+    b16_ms, _ = bound(q1_bytes(ldag16, 4), q1_ops(ldag16, 4, counts16))
+    print(f"[19] gpu: {gpu}")
+    print(f"[19] Q1 k 4 at rmat{MAIN_SCALE}: {ms:.3f} ms (CUDA events), plain "
+          f"version {plain20_ms:.1f} ms (one call; {bad20} vertices differ), "
+          f"bound {b_ms:.4f} ms ({b_by}: {q1_bytes(ldag, 4)} B, "
+          f"{q1_ops(ldag, 4, lower)} tests and word ANDs); at "
+          f"rmat{SMOKE_SCALE}: {ms16:.3f} ms, plain {plain16_ms[4]:.1f} ms, "
+          f"bound {b16_ms:.4f} ms")
+    if bad20:
+        fail("Q1 disagrees with its plain version at R-MAT-20")
+    return {"name": "kcl_local_count", "route": "cuda", "source": Q1_SOURCE,
+            "replaces": Q1_REPLACES, "launches": launches,
+            "launches_by_path": {f"kcl bench rmat{MAIN_SCALE}": launches},
+            **stats, "k": 4, "classes": classes, "ms": ms,
+            "plain_ms": plain20_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "ms_rmat16": ms16, "plain_ms_rmat16": plain16_ms[4],
+            "bound_ms_rmat16": b16_ms, "library_ms": None}
+
+
+def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
+    """Phase 20: the R-MAT-16 4-census against the TPU record, its wedge
+    streams against the host oracles, the 3-census and the 4-census bench
+    at R-MAT-20 (a main path: Q1's and the TC kernels' launches counted
+    around it, classes x solves, tc_per_solve being the TC bench's
+    launches a solve); the host-oracle branch must not run.  Returns the
+    bench's launches by kernel."""
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.mining import kcl, motif, wedgestream
+    from gardenia_tpu_torch.ops import kcl_count
+    from gardenia_tpu_torch.ops import tc_count as tcc
+    record, _, census = bench.bench_motif(SMOKE_SCALE, dev, g=g16)
+    print(json.dumps(record))
+    print(f"[20] motif bench rmat{SMOKE_SCALE}: census "
+          f"{'equals' if record['detail']['correct'] else 'DIFFERS from'} "
+          f"the TPU record, aggregates {record['detail']['aggregates']}")
+    if not record["detail"]["correct"] or \
+            record["detail"]["aggregates"] != "streams" or \
+            record["detail"]["kcl_route"] != "q1":
+        fail("the R-MAT-16 4-census differs from the TPU record or missed "
+             "Q1")
+    # the streams against the host oracles: the per-edge triangles at
+    # R-MAT-16 and R-MAT-14 (the card's wedge sweep), c_non at R-MAT-14,
+    # where codegree_cycle_quads makes one numpy pass of 77.8M wedges (at
+    # R-MAT-16, 622.6M wedges in 4 passes, minutes on one core; there the
+    # census's 4-cycles and diamonds equal to the record hold c_non)
+    g14 = generate_graph("rmat", scale=CC_UNIFORM_SCALE, degree=16,
+                         symmetrize=True)
+    for label, graph, quads_too in ((f"rmat{SMOKE_SCALE}", g16, False),
+                                    (f"rmat{CC_UNIFORM_SCALE}", g14, True)):
+        t0 = time.perf_counter()
+        c_non, tri_u, _, _ = wedgestream.wedge_stream_stats(graph, device=dev)
+        streams_s = time.perf_counter() - t0
+        src = np.repeat(np.arange(graph.m), np.diff(graph.rowptr))
+        t0 = time.perf_counter()
+        tri = motif.edge_triangle_counts(graph, chunk=TRI_CHUNK,
+                                         device=dev)[src < graph.colidx]
+        tri_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        quads = motif.codegree_cycle_quads(graph) if quads_too else None
+        quads_s = time.perf_counter() - t0
+        same = np.array_equal(tri_u, tri) and quads in (None, c_non)
+        print(f"[20] wedge streams {label}: c_non {c_non}, sum tri_u "
+              f"{int(tri_u.sum())} ({streams_s:.2f} s); the host oracles' "
+              + (f"c_non {quads} ({quads_s:.1f} s, numpy), " if quads_too
+                 else "") + f"sum tri {int(tri.sum())} ({tri_s:.2f} s, the "
+              f"card's wedge sweep): {'equal' if same else 'NOT equal'}")
+        if not same:
+            fail(f"the wedge streams disagree with the host oracles on "
+                 f"{label}")
+    census3 = motif.motif_solver(g, 3, device=dev)
+    deg = np.diff(g.rowptr).astype(np.int64)
+    want3 = {"3-path": int((deg * (deg - 1) // 2).sum())
+             - 3 * bench.TC_RECORD[MAIN_SCALE],
+             "3-triangle": bench.TC_RECORD[MAIN_SCALE]}
+    print(f"[20] motif rmat{MAIN_SCALE} k 3: {json.dumps(census3)}")
+    if census3 != want3:
+        fail(f"the R-MAT-20 3-census is not {want3}")
+    # the main path: the motif bench, the kernels' launches counted
+    # around it
+    kcl_count.LAUNCHES = 0
+    tcc.reset_launches()
+    record, _, _ = bench.bench_motif(MAIN_SCALE, dev, g=g)
+    launches = {"kcl_local_count": kcl_count.LAUNCHES, **tcc.LAUNCHES}
+    print(json.dumps(record))
+    d = record["detail"]
+    solves = sum(bench.mining_repeats(MAIN_SCALE).values())
+    q1_classes = len(kcl_count.class_slices(kcl.local_dag(g, dev), 4))
+    want = {"kcl_local_count": q1_classes * solves,
+            **{name: n * solves for name, n in tc_per_solve.items()}}
+    print(f"[20] motif bench rmat{MAIN_SCALE}: aggregates {d['aggregates']},"
+          f" {d['n_parts']} + {d['n_qparts']} stream partitions, 4-cliques "
+          f"on route {d['kcl_route']}, launches {json.dumps(launches)} over "
+          f"{solves} solves (classes x solves: {json.dumps(want)}), "
+          f"4-cliques and triangles "
+          f"{'hold' if d['correct'] else 'do NOT hold'}; gpu: {gpu}")
+    if not d["correct"]:
+        fail("the R-MAT-20 4-census misses its holds")
+    if launches != want or 0 in launches.values():
+        fail(f"the motif bench's launches {launches} are not classes x "
+             f"solves {want}")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2381,6 +2690,19 @@ def main() -> None:
     # ---- 18. SGD: the f64 replica at R-MAT-16, the R-MAT-20 bench ---------
     sgd_phase(dev, gpu, g, g16)
 
+    # ---- 19. kCL: Q1 against its plain version, the R-MAT-20 bench --------
+    q1_entry = kcl_phase(dev, gpu, g, g16)
+
+    # ---- 20. motif: the census at R-MAT-16 and R-MAT-20 -------------------
+    motif_launches = motif_phase(
+        dev, gpu, g, g16,
+        {name: n // (bench.TC_WARMUP + bench.TC_ITERS)
+         for name, n in tc_launches.items()})
+    motif_path = f"motif bench rmat{MAIN_SCALE}"
+    q1_entry["launches"] += motif_launches["kcl_local_count"]
+    q1_entry["launches_by_path"][motif_path] = \
+        motif_launches["kcl_local_count"]
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -2447,12 +2769,17 @@ def main() -> None:
         b_ms, b_by = bound(tc_ms[name]["bytes"], tc_ms[name]["ops"])
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": tc_launches[name],
+            "replaces": replaces,
+            "launches": tc_launches[name] + motif_launches[name],
+            "launches_by_path": {f"tc bench rmat{MAIN_SCALE}":
+                                 tc_launches[name],
+                                 motif_path: motif_launches[name]},
             "mismatches": stats[name]["mismatches"],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     entries.append(v1_entry)
+    entries.append(q1_entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

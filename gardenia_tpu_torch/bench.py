@@ -63,13 +63,33 @@ repo's bench.py:
        with ratings integers(1, 6) from default_rng(13), the latent
        tables made and uploaded before the timed solves; vs 500 M
        ratings/s; detail.final_rmse and epochs.
+  kcl — `kcl4_mcps_rmat{scale}`: 4-cliques / solve seconds / 1e6 of
+       kcl_solver (kernel Q1 on route "q1"), one timed solve after one
+       warm-up at scale >= 18 (best of 2 below); vs 200 M cliques/s;
+       detail.route (what ran: q1, expand, or q1_plain where a DAG on the
+       CPU took Q1's plain version), q1_launches (over all solves) and
+       correct: the count equals the JAX package's record (291,554,165
+       at scale 16, 17,113,600,315 at 20) on route q1, or else
+       kcl_verifier's when |V| <= 5000, or else the plain route's on the
+       same device (detail.check names which).
+  motif — `motif4_meps_rmat{scale}`: edges / solve seconds / 1e6 of the
+       4-motif census, repeats as kcl; vs 50 M edges/s; detail.census,
+       aggregates ("streams" or "host_oracles"), kcl_route and
+       q1_launches (the census's 4-cliques), n_parts and n_qparts (the
+       wedge streams' partitions) and correct: the census equals the TPU
+       record at scale 16; at 20 the 4-cliques equal kcl's record, the
+       triangles over the edges 3 x 424,573,866 and the aggregates are
+       the streams'; at both the 4-cliques took route q1; elsewhere the
+       4-cliques equal kcl_solver's and the triangles over the edges 3 x
+       tc_solver's.
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
 must not round to 0.
 
 Run: python -m gardenia_tpu_torch.bench
-         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc,vc,symgs,sgd}]
+         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc,vc,symgs,sgd,
+                    kcl,motif}]
                                         [--scale 20] [--device cuda]
 """
 
@@ -96,6 +116,18 @@ BASELINE_SCC_MS_PER_MEDGE = 1.0
 BASELINE_VC_MS_PER_MEDGE = 1.0
 BASELINE_SYMGS_GFLOPS = 30.0
 BASELINE_SGD_MRPS = 500.0
+BASELINE_KCL4_MCPS = 200.0    # M 4-cliques listed / s
+BASELINE_MOTIF4_MEPS = 50.0   # M edges / s for the 4-motif census
+# the JAX package's answers on the bench's graphs (BENCH_SWEEP_r5.jsonl:
+# 13, 14, 16, 17; the triangles: BENCH_SWEEP_r2.jsonl:7), which a solve
+# at these scales must give exactly
+KCL4_RECORD = {16: 291_554_165, 20: 17_113_600_315}
+TC_RECORD = {20: 424_573_866}
+MOTIF4_RECORD = {16: {"4-path": 122_915_187_566, "4-star": 505_729_627_628,
+                      "4-cycle": 1_164_848_010,
+                      "4-tailed-triangle": 48_230_073_860,
+                      "4-diamond": 3_512_882_086,
+                      "4-clique": 291_554_165}}
 SGD_EPOCHS, SGD_STEP = 10, 0.1   # bench.py:290-331
 SPMV_REPS = 8             # applies a timed SpMV solve, as bench.py:142
 SSSP_DELTA = 1024         # bench.py:335-369
@@ -478,10 +510,89 @@ def bench_sgd(scale: int, device="cuda", g=None, epochs: int = SGD_EPOCHS):
     return record, gr, res
 
 
+def mining_repeats(scale: int) -> dict:
+    """A mining bench's repeats (bench.py:383-385): one warm-up solve,
+    then one timed solve at scale >= 18 (a solve is long there), two
+    below."""
+    return {"warmup": 1, "iters": 2 if scale < 18 else 1}
+
+
+def bench_kcl(scale: int, device="cuda", g=None, k: int = 4):
+    """(record, graph, clique count) of the kCL benchmark (bench.py:
+    376-393); g, when given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.mining import kcl
+    from gardenia_tpu_torch.ops import kcl_count
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = kcl_count.LAUNCHES
+    total, secs = time_op(lambda: kcl.kcl_solver(g, k, device=dev),
+                          device=dev, **mining_repeats(scale))
+    route, launches = kcl.LAST_ROUTE, kcl_count.LAUNCHES - before
+    record_count = KCL4_RECORD.get(scale) if k == 4 else None
+    if record_count is not None:
+        check, correct = "record", total == record_count and route == "q1"
+    elif g.m <= 5000:
+        check, correct = "verifier", total == kcl.kcl_verifier(g, k)
+    else:
+        check = "plain"
+        correct = total == int(kcl_count.local_count_plain(
+            kcl.local_dag(g, dev), k).sum())
+    mcps = total / secs / 1e6
+    record = {"metric": f"kcl{k}_mcps_rmat{scale}", "value": mcps,
+              "unit": "M cliques/s", "vs_baseline": mcps / BASELINE_KCL4_MCPS,
+              "detail": {"cliques": int(total), "k": k, "ms": secs * 1e3,
+                         "route": route, "q1_launches": launches,
+                         "check": check, "correct": bool(correct),
+                         "nnz": g.nnz, "m": g.m, "device": device_name(dev)}}
+    return record, g, total
+
+
+def bench_motif(scale: int, device="cuda", g=None):
+    """(record, graph, census) of the 4-motif benchmark (bench.py:396-408);
+    g, when given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.mining import kcl, motif, wedgestream
+    from gardenia_tpu_torch.ops import kcl_count
+    from gardenia_tpu_torch.solvers.tc import tc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = kcl_count.LAUNCHES
+    census, secs = time_op(lambda: motif.motif_solver(g, 4, device=dev),
+                           device=dev, **mining_repeats(scale))
+    route, launches = kcl.LAST_ROUTE, kcl_count.LAUNCHES - before
+    agg = motif.LAST_AGGREGATES
+    if scale in MOTIF4_RECORD:
+        check = "record"
+        correct = census == MOTIF4_RECORD[scale] and route == "q1"
+    elif scale in KCL4_RECORD:
+        check = "record"
+        correct = (census["4-clique"] == KCL4_RECORD[scale]
+                   and agg["tri_sum"] == 3 * TC_RECORD[scale]
+                   and agg["aggregates"] == "streams" and route == "q1")
+    else:
+        check = "solvers"
+        correct = (census["4-clique"] == kcl.kcl_solver(g, 4, device=dev)
+                   and agg["tri_sum"] == 3 * tc_solver(g, device=dev))
+    meps = g.nnz / secs / 1e6
+    record = {"metric": f"motif4_meps_rmat{scale}", "value": meps,
+              "unit": "M edges/s", "vs_baseline": meps / BASELINE_MOTIF4_MEPS,
+              "detail": {"census": census, "ms": secs * 1e3,
+                         "aggregates": agg["aggregates"],
+                         "kcl_route": route, "q1_launches": launches,
+                         **wedgestream.partition_counts(g),
+                         "check": check, "correct": bool(correct),
+                         "nnz": g.nnz, "m": g.m, "device": device_name(dev)}}
+    return record, g, census
+
+
 KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
            "msbfs": bench_msbfs, "bc": bench_bc, "spmv": bench_spmv,
            "sssp": bench_sssp, "mst": bench_mst, "scc": bench_scc,
-           "vc": bench_vc, "symgs": bench_symgs, "sgd": bench_sgd}
+           "vc": bench_vc, "symgs": bench_symgs, "sgd": bench_sgd,
+           "kcl": bench_kcl, "motif": bench_motif}
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """Benchmark CLI of the port — the `pr`, `spmv`, `bfs`, `sssp`, `cc`, `bc`,
-`tc`, `scc`, `mst`, `vc`, `symgs` and `sgd` kernels, with the positional
-argv of gardenia_tpu/cli.py:
+`tc`, `scc`, `mst`, `vc`, `symgs`, `sgd`, `kcl` and `motif` kernels, with
+the positional argv of gardenia_tpu/cli.py:
 
   python -m gardenia_tpu_torch.cli <kernel> <filetype> <graph-prefix|scale>
                                    [symmetrize] [kernel args...]
@@ -20,6 +20,8 @@ e.g.
   python -m gardenia_tpu_torch.cli vc rmat 20
   python -m gardenia_tpu_torch.cli symgs rmat 16
   python -m gardenia_tpu_torch.cli sgd rmat 20 0 0 0.05 0.003 3
+  python -m gardenia_tpu_torch.cli kcl rmat 20 1 4
+  python -m gardenia_tpu_torch.cli motif rmat 16 1 4
 
 Flags may stand anywhere among the positionals, as in the reference's CLI
 (`--device cpu` in two words is taken too); an unknown flag prints a
@@ -37,14 +39,18 @@ G GFLOP/s B GB/s)'; sssp: 'iterations = N.' and the runtime; scc:
 the runtime and 'number of SCCs = N'; mst: the runtime and 'MST weight =
 W'; vc: 'runtime [base] = X ms, num_colors = N.'; symgs: the runtime;
 sgd: 'Iteration i: RMSE error = E' per epoch, 'iterations = N.' and the
-runtime) and the serial oracle's 'Correct'/'Wrong' (vc: a proper
+runtime; kcl: the runtime, 'total_num_cliques = N' and the route with
+Q1's launches; motif: the runtime, '<pattern>: N' a line and, at k = 4,
+which aggregates ran) and the serial oracle's 'Correct'/'Wrong' (vc: a proper
 colouring; symgs: l2 error < 1e-4 against the serial sweep, a
 pure-Python loop that takes minutes at R-MAT-20; sgd: a finite RMSE
 trace, non-increasing within 0.1% an epoch, that ends below where it
 began).  bfs takes [symmetrize]
 [reverse] [source] and bc the same after the graph (src/bfs/main.cc:
 8-19); sssp takes [symmetrize] [reverse] [source] [delta]; sgd [symmetrize] [-]
-[lambda] [step] [max_iters].  `main` returns 1 on 'Wrong'.
+[lambda] [step] [max_iters]; kcl and motif [symmetrize] [k] (kcl: no
+check past 5000 vertices at k > 3, motif: none past 80 vertices, as in
+the reference's CLI).  `main` returns 1 on 'Wrong'.
 """
 
 from __future__ import annotations
@@ -311,10 +317,65 @@ def sgd_trace_ok(trace) -> bool:
                 and trace[-1] < trace[0])
 
 
+def run_kcl(args, device, variant="base") -> bool:
+    """kcl <filetype> <graph> [symmetrize] [k] (mining/kcl_dfs driver):
+    symmetrizes by default, k = 4 by default; checked against the serial
+    DFS when |V| <= 5000, and at k = 3 (the triangle route) through the
+    expansion's own route (force_expand) on larger graphs."""
+    if variant != "base":
+        raise ValueError(f"unknown kcl variant {variant!r} (only 'base')")
+    print("k-Clique Listing by gardenia_tpu_torch")
+    g, rest = _load(args, symmetrize_default=True)
+    k = int(rest[0]) if rest else 4
+    from gardenia_tpu_torch.mining import kcl
+    from gardenia_tpu_torch.ops import kcl_count
+    before = kcl_count.LAUNCHES
+    total, secs = time_op(lambda: kcl.kcl_solver(g, k, device=device),
+                          device=device)
+    report_runtime(variant, secs)
+    print(f"total_num_cliques = {total}")
+    print(f"route = {kcl.LAST_ROUTE}, Q1 launches = "
+          f"{kcl_count.LAUNCHES - before}")
+    if g.m <= 5000:
+        return check(total == kcl.kcl_verifier(g, k))
+    if k == 3:
+        # the triangle count rode tc_solver: count again through Q1 or the
+        # expansion, two independent implementations
+        expect = kcl.kcl_solver(g, 3, force_expand=True, device=device)
+        return check(total == expect, f"(route {kcl.LAST_ROUTE}: {expect})")
+    print("(verification skipped: graph too large for serial oracle)")
+    return True
+
+
+def run_motif(args, device, variant="formula") -> bool:
+    """motif <filetype> <graph> [symmetrize] [k]: the induced k-census
+    (k = 3 by default, or 4) by the formula variant; checked against the
+    brute-force census when |V| <= 80."""
+    if variant != "formula":
+        raise ValueError(f"unknown motif variant {variant!r} "
+                         "(only 'formula')")
+    print("Motif Counting by gardenia_tpu_torch")
+    g, rest = _load(args, symmetrize_default=True)
+    k = int(rest[0]) if rest else 3
+    from gardenia_tpu_torch.mining import motif
+    census, secs = time_op(lambda: motif.motif_solver(g, k, device=device),
+                           device=device)
+    report_runtime(variant, secs)
+    for name, cnt in census.items():
+        print(f"{name}: {cnt}")
+    if k == 4:
+        print(f"aggregates = {motif.LAST_AGGREGATES['aggregates']}")
+    if g.m <= 80:
+        return check(census == motif.motif_census_bruteforce(g, k))
+    print("(verification skipped: graph too large for brute force)")
+    return True
+
+
 KERNELS = {"pr": run_pr, "spmv": run_spmv, "bfs": run_bfs,
            "sssp": run_sssp, "cc": run_cc, "bc": run_bc, "tc": run_tc,
            "scc": run_scc, "mst": run_mst, "vc": run_vc,
-           "symgs": run_symgs, "sgd": run_sgd}
+           "symgs": run_symgs, "sgd": run_sgd, "kcl": run_kcl,
+           "motif": run_motif}
 
 
 def main(argv=None) -> int:

@@ -144,6 +144,14 @@ def lib() -> ctypes.CDLL:
             # (forb, rowptr, col, chosen, counter, K, C, stream)
             so.gdn_vc_core_firstfit.argtypes = [vp] * 5 + [ci, ci, vp]
             so.gdn_vc_core_firstfit.restype = ci
+            # (rowptr, colidx, verts, nverts, cnt, k, dmax, stream)
+            so.gdn_kcl_local_count.argtypes = [vp, vp, vp, ll, vp, ci, ci, vp]
+            so.gdn_kcl_local_count.restype = ci
+            for name in ("gdn_kcl_min_k", "gdn_kcl_max_k",
+                         "gdn_kcl_warp_degree", "gdn_kcl_max_degree"):
+                fn = getattr(so, name)
+                fn.argtypes = []
+                fn.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

@@ -1,7 +1,8 @@
 """Where a solve's device time goes, by torch.profiler on a CUDA card.
 
     python -m gardenia_tpu_torch.profile_solve
-        [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst,vc,symgs,sgd}]
+        [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst,vc,symgs,sgd,
+                   kcl,motif}]
         [--graph {rmat,uniform}] [--scale 20] [--solves 3]
         [--trace chiprun_out/trace.json]
 
@@ -15,7 +16,8 @@ bfs_do_fused from the vertex of highest degree; msbfs and bc: sources
 0..127; spmv: the bench's 8 hybrid applies on the PR layout with scale
 0.2; sssp: nearfar from vertex 0 with delta 1024; scc: 'color'; symgs:
 the bench's inputs and colouring; sgd: 10 epochs at step 0.1 from the
-bench's latent tables): one
+bench's latent tables; kcl: kcl_solver at k = 4 through Q1; motif: the
+4-motif census): one
 untraced solve that
 builds and uploads (layout or TC prep), then `--solves` untraced solves
 timed on the host clock after cuda.synchronize, then `--solves` solves
@@ -92,6 +94,12 @@ def solver(kernel: str, g):
             return sgd_solver(g, step=SGD_STEP, max_iters=SGD_EPOCHS,
                               epsilon=0.0, init=init, device=device)
         return sgd
+    if kernel == "kcl":
+        from gardenia_tpu_torch.mining.kcl import kcl_solver
+        return partial(kcl_solver, k=4)
+    if kernel == "motif":
+        from gardenia_tpu_torch.mining.motif import motif_solver
+        return partial(motif_solver, k=4)
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
 
@@ -118,7 +126,8 @@ def main(argv=None):
                                       "profile_solve")
     ap.add_argument("--kernel", default="tc",
                     choices=["pr", "tc", "cc", "bfs", "msbfs", "bc", "spmv",
-                             "sssp", "scc", "mst", "vc", "symgs", "sgd"])
+                             "sssp", "scc", "mst", "vc", "symgs", "sgd",
+                             "kcl", "motif"])
     ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)

@@ -45,6 +45,9 @@ assert {"gardenia_tpu_torch.cli", "gardenia_tpu_torch.solvers.cc",
         "gardenia_tpu_torch.solvers.vc", "gardenia_tpu_torch.solvers.symgs",
         "gardenia_tpu_torch.solvers.sgd", "gardenia_tpu_torch.ops.vc_core",
         "gardenia_tpu_torch.utils.checkpoint",
+        "gardenia_tpu_torch.mining.kcl", "gardenia_tpu_torch.mining.motif",
+        "gardenia_tpu_torch.mining.wedgestream",
+        "gardenia_tpu_torch.ops.kcl_count",
         "gardenia_tpu_torch.core.graph", "gardenia_tpu_torch.native",
         "gardenia_tpu_torch.verify.oracles"} <= set(names), names
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
@@ -429,3 +432,63 @@ def test_timer_needs_its_device():
         Timer()
     result, secs = time_op(lambda: 7, device="cpu", warmup=0, iters=2)
     assert result == 7 and secs >= 0
+
+
+# --- kcl, motif ---------------------------------------------------------
+
+@pytest.mark.parametrize("words,title,total", [
+    (("kcl", "rmat", "8"), "k-Clique Listing", "total_num_cliques = 44214"),
+    (("kcl", "rmat", "8", "1", "3"), "k-Clique Listing",
+     "total_num_cliques = 11768"),
+    (("motif", "rmat", "6", "1", "4"), "Motif Counting", "4-clique: 2726"),
+    (("motif", "rmat", "6"), "Motif Counting", "3-triangle: 1328")])
+def test_cli_kcl_motif_contract_lines(words, title, total):
+    """kcl and motif print the reference's lines (gardenia_tpu/cli.py:
+    251-288) and end Correct on the CPU: kcl against the serial DFS, motif
+    against the brute-force census; kcl names its route and Q1's
+    launches, motif at k = 4 its aggregates."""
+    proc, lines = _cli(*words, "--device=cpu")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert lines[0] == f"{title} by gardenia_tpu_torch"
+    assert lines[1].startswith(f"|V| {1 << int(words[2])} |E| ")
+    variant = "base" if words[0] == "kcl" else "formula"
+    assert lines[2].startswith(f"\truntime [{variant}] = ")
+    assert total in lines
+    if words[0] == "kcl":
+        route = "tc" if words[-1] == "3" else "q1_plain"
+        assert f"route = {route}, Q1 launches = 0" in lines
+    if words[-1] == "4":
+        assert "aggregates = streams" in lines
+    assert lines[-1] == "Correct"
+
+
+@pytest.mark.parametrize("kernel,metric,unit", [
+    ("kcl", "kcl4_mcps_rmat8", "M cliques/s"),
+    ("motif", "motif4_meps_rmat8", "M edges/s")])
+def test_bench_kcl_motif_cpu_print_one_json_line(kernel, metric, unit):
+    """One JSON line with the reference's metric name and formula
+    (bench.py:376-408), the route or the aggregates' branch, and the
+    check that holds the answer."""
+    proc = _run(["-m", "gardenia_tpu_torch.bench", "--kernel", kernel,
+                 "--scale", "8", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    assert rec["metric"] == metric and rec["unit"] == unit
+    assert d["device"] == "cpu" and d["m"] == 256 and d["correct"] is True
+    if kernel == "kcl":
+        assert d["cliques"] == 44214 and d["k"] == 4
+        assert abs(rec["value"] - 44214 / d["ms"] / 1e3) < 1e-9 * rec["value"]
+        assert rec["vs_baseline"] == rec["value"] / 200.0
+        assert d["route"] == "q1_plain" and d["q1_launches"] == 0
+        assert d["check"] == "verifier"
+    else:
+        assert d["census"]["4-clique"] == 44214
+        assert abs(rec["value"] - d["nnz"] / d["ms"] / 1e3) \
+            < 1e-9 * rec["value"]
+        assert rec["vs_baseline"] == rec["value"] / 50.0
+        assert d["aggregates"] == "streams" and d["check"] == "solvers"
+        assert d["kcl_route"] == "q1_plain" and d["q1_launches"] == 0
+        assert d["n_parts"] == d["n_qparts"] == 1
