@@ -150,20 +150,30 @@ result:
      R-MAT-20, 10 epochs, its trace finite and monotone, its final RMSE
      beside the TPU record's;
   19. k-clique counting: kernel Q1 (per-vertex counts in each vertex's
-     local bitmap graph) against its plain version (the level expansion)
-     vertex by vertex, exactly, at k = 3, 4 and 5 on hand-made cases (no
-     edge; cliques, also against C(n-1-u, k-1); K_{n,n} with random edges
-     inside one side, whose other side has out-degree exactly 32, 33 and
-     1024 -- the class edges -- and 1025, which must take the expansion)
-     and on R-MAT-16; kcl_solver at R-MAT-16 against the TPU record
-     (291,554,165); the main path: the port's bench (--kernel kcl) at
-     R-MAT-20, Q1's launches set to 0 before and read after (classes x
-     solves), its count held to the TPU record (17,113,600,315) on route
-     q1; k = 3 through Q1 (force_expand) against tc_solver at R-MAT-16
-     and R-MAT-20; Q1 timed by CUDA events at R-MAT-20 and R-MAT-16 beside
-     one call of the plain version (held equal per vertex), and its bound
-     (the CSR, vertex lists and counts once; the smaller side's
-     membership tests and the word ANDs);
+     local bitmap graph) -- its sizes (hash table bits and slots, lanes a
+     root, shared bytes) held to the host's copies in ops/kcl_count at
+     every out-degree 1..1024 -- against its plain version (the level
+     expansion) vertex by vertex, exactly, at k = 3, 4 and 5 on hand-made
+     cases (no edge; cliques, also against C(n-1-u, k-1), and K_12, K_34
+     at k = 6..8; K_{n,n} with random edges inside one side, whose other
+     side has out-degree exactly n: 32/33 (one and two words a row in
+     the warp shape), 64/65 (the warp shape's edge), 128/129 and 256/257
+     (where the lanes a root change; 257 the tensor cores' first W),
+     512/513 (the hubs' run), 1024 and 1025, which must take the
+     expansion; one hub of out-degree 1024 alone in the CTA shape;
+     out-neighbours that all share the table's last slot, at d = 60 and
+     500, with ids in their rows that pass the filter and miss) and on
+     R-MAT-16; kcl_solver at
+     R-MAT-16 against the TPU record (291,554,165); the main path: the
+     port's bench (--kernel kcl) at R-MAT-20, Q1's launches set to 0
+     before and read after (the launch plan's runs x solves), its count
+     held to the TPU record (17,113,600,315) on route q1; k = 3 through
+     Q1 (force_expand) against tc_solver at R-MAT-16 and R-MAT-20; Q1
+     timed by CUDA events at R-MAT-20 and R-MAT-16 beside one call of the
+     plain version (held equal per vertex), and its bound (the CSR,
+     vertex lists and counts once; the smaller side's membership tests
+     and the word ANDs); per degree class, Q1 and the copies of
+     scripts/probe_q1.py without the count and without the lookups;
   20. the motif census: the port's bench (--kernel motif) at R-MAT-16,
      its census equal to the TPU record; the wedge streams' per-edge
      triangles against the card's wedge sweep at R-MAT-16 and R-MAT-14
@@ -1563,14 +1573,22 @@ def sym_graph(n: int, src, dst):
 
 
 def kcl_hand_cases():
-    """(label, Graph, the per-vertex counts at k or None) edge cases of
-    Q1: no edge; cliques, whose DAG is by id (equal degrees), so vertex u
-    starts C(n-1-u, k-1) k-cliques; K_{n,n} with a seeded random graph of
-    4n edges inside its second side, whose first-side vertices have
-    out-degree exactly n (32 and 33: the edges of the warp and the first
-    CTA class; 1024, Q1's limit; 1025 takes the expansion) and that random
-    graph, oriented, as their local graph."""
+    """(label, Graph or (rowptr, colidx) of a DAG, the k to hold, the
+    per-vertex counts at k or None) edge cases of Q1: no edge; cliques,
+    whose DAG is by id (equal degrees), so vertex u starts C(n-1-u, k-1)
+    k-cliques (K_12 and K_34 also at k = 6..8); K_{n,n} with a seeded
+    random graph of 4n edges inside its second side, whose first-side
+    vertices have out-degree exactly n: the warp shape's one and two
+    words a row (32/33) and its edge (64/65), each W where the CTA
+    shape's lanes a root at k = 4 change (128/129, 256/257), the tensor
+    cores' first W (257) and the hubs' run (512/513), Q1's limit (1024;
+    1025 takes the expansion); one hub of out-degree 1024 alone in the
+    CTA shape, over a band DAG of out-degree 12; and ids that share one
+    slot of the hash table (the last, so probes wrap): a vertex whose
+    out-neighbours all do, whose rows hold more such ids that it lacks,
+    half of them past its filter."""
     from math import comb
+    from gardenia_tpu_torch.ops import kcl_count
     rng = np.random.default_rng(19)
 
     def clique(n):
@@ -1584,11 +1602,69 @@ def kcl_hand_cases():
         return sym_graph(2 * n, np.concatenate([a, x]),
                          np.concatenate([n + b, y])), None
 
-    return ([("no edge, 64 vertices", sym_graph(64, [], []),
+    def dag(rows, m):
+        rowptr = np.zeros(m + 1, np.int64)
+        rowptr[1:len(rows) + 1] = np.cumsum([len(r) for r in rows])
+        rowptr[len(rows) + 1:] = rowptr[len(rows)]
+        colidx = np.concatenate([np.asarray(sorted(r), np.int32)
+                                 for r in rows])
+        return rowptr, colidx
+
+    def hub_alone(d=1024, band=12):
+        rows = [range(1, d + 1)] + [range(i + 1, min(i + band, d) + 1)
+                                    for i in range(1, d + 1)]
+        return dag(rows, d + 1)
+
+    def colliding(d):
+        # ids with the last slot of a d-vertex table: d of them, spread over
+        # the range, are vertex 0's row; up to d others inside its window
+        # whose filter bits are members' (so every one probes the whole
+        # cluster and misses) and d more that the filter stops fill its
+        # members' rows
+        bits = kcl_count.hash_bits(d)
+        ids = np.arange(1, 1 << 25)
+        ids = ids[kcl_count.hash_slot(ids, bits) == (1 << bits) - 1]
+        members = ids[np.linspace(0, len(ids) - 1, d).astype(np.int64)]
+        rest = ids[(ids > members[0]) & (ids < members[-1])
+                   & ~np.isin(ids, members)]
+        passes = np.isin(kcl_count.filter_bit(rest, bits),
+                         kcl_count.filter_bit(members, bits))
+        if passes.sum() < 16:
+            fail(f"only {passes.sum()} ids pass a {d}-vertex filter")
+        others = np.sort(np.concatenate([
+            part[np.linspace(0, len(part) - 1, min(d, len(part)))
+                 .astype(np.int64)]
+            for part in (rest[passes], rest[~passes])]))
+        rows = {0: members.tolist()}
+        for i, v in enumerate(members):
+            near = np.searchsorted(others, v)
+            rows[int(v)] = sorted(set(members[i + 1:i + 9].tolist())
+                                  | set(others[max(0, near - 4):near + 4]
+                                        .tolist()))
+        m = int(max(members[-1], others.max())) + 1
+        keys = sorted(rows)
+        lens = np.zeros(m, np.int64)
+        lens[keys] = [len(rows[v]) for v in keys]
+        rowptr = np.concatenate([[0], np.cumsum(lens)])
+        colidx = np.concatenate([np.asarray(rows[v], np.int32)
+                                 for v in keys])
+        return rowptr, colidx
+
+    k345 = (3, 4, 5)
+    return ([("no edge, 64 vertices", sym_graph(64, [], []), k345,
               lambda k: np.zeros(64, np.int64))]
-            + [(f"K_{n}", *clique(n)) for n in (5, 33, 64)]
+            + [(f"K_{n}", *clique(n)[:1], k345, clique(n)[1])
+               for n in (5, 33, 64)]
+            + [(f"K_{n}", *clique(n)[:1], (6, 7, 8), clique(n)[1])
+               for n in (12, 34)]
             + [(f"K_{{{n},{n}}} + 4n random edges inside, d = {n}",
-                *biclique_plus(n)) for n in (32, 33, 1024, 1025)])
+                biclique_plus(n)[0], k345, None)
+               for n in (32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024,
+                         1025)]
+            + [("one hub of d = 1024 alone over a band DAG", hub_alone(),
+                k345, None)]
+            + [(f"{d} out-neighbours sharing one hash slot, d = {d}",
+                colliding(d), k345, None) for d in (60, 500)])
 
 
 def q1_bytes(ldag, k: int) -> int:
@@ -1596,7 +1672,7 @@ def q1_bytes(ldag, k: int) -> int:
     vertex lists and the counts, each once."""
     from gardenia_tpu_torch.ops import kcl_count
     verts = sum(end - first for first, end, _ in
-                kcl_count.class_slices(ldag, k))
+                kcl_count.launch_plan(ldag, k))
     return (8 * ldag.rowptr.numel() + 4 * ldag.colidx.numel() + 4 * verts
             + 8 * (ldag.rowptr.numel() - 1))
 
@@ -1621,29 +1697,51 @@ def q1_ops(ldag, k: int, lower_counts: dict) -> int:
 
 
 def kcl_phase(dev, gpu: str, g, g16):
-    """Phase 19: Q1 against its plain version per vertex (hand cases,
-    R-MAT-16 at k = 3, 4, 5), kcl_solver at R-MAT-16 against the TPU
-    record, the R-MAT-20 kcl bench (the main path) with Q1's launches,
-    Q1 timed beside its plain version and its bound, and k = 3 through
-    Q1 against tc_solver.  Returns Q1's entry of the kernels line."""
+    """Phase 19: Q1's sizes as the library exports them against the host's
+    copies; Q1 against its plain version per vertex (hand cases, R-MAT-16
+    at k = 3, 4, 5), kcl_solver at R-MAT-16 against the TPU record, the
+    R-MAT-20 kcl bench (the main path) with Q1's launches, Q1 timed beside
+    its plain version and its bound, by degree class with the probe's
+    split (scripts/probe_q1.py), and k = 3 through Q1 against tc_solver.
+    Returns Q1's entry of the kernels line."""
     import torch
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.mining import kcl
     from gardenia_tpu_torch.ops import kcl_count
     from gardenia_tpu_torch.solvers.tc import tc_solver
+    from scripts import probe_q1
     limits = kcl_count.kernel_limits()
     print(f"[19] Q1's limits as the library exports them: "
           f"{json.dumps(limits)}")
+    ids = np.random.default_rng(7).integers(0, 2 ** 31 - 1, 64)
+    for d in range(1, kcl_count.MAX_DEGREE + 1):
+        bits = kcl_count.hash_bits(d)
+        mine = {"hash_bits": bits,
+                "slots": kcl_count.hash_slot(ids, bits).tolist(),
+                "filter_bits": kcl_count.filter_bit(ids, bits).tolist(),
+                "group_lanes": kcl_count.group_lanes(kcl_count.words(d)),
+                "shared_bytes": kcl_count.shared_bytes(d)}
+        if kcl_count.kernel_sizes(d, ids) != mine:
+            fail(f"ops/kcl_count's sizes at d = {d} differ from the "
+                 f"library's: {mine} vs {kcl_count.kernel_sizes(d, ids)}")
+    print(f"[19] Q1's sizes (table bits, slots and filter bits, lanes a root,"
+          f" shared bytes) equal the host's copies at d = 1.."
+          f"{kcl_count.MAX_DEGREE};"
+          f" shared bytes at d = 1024: {kcl_count.shared_bytes(1024)}")
     stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0}
 
-    def hold(label, graph, k, want=None):
+    def hold(label, src, k, want=None):
         """Q1 and its plain version on the same DAG, per vertex, exact
-        (and the closed form where given); the counts, Q1's classes and
-        the plain version's ms."""
-        ldag = kcl.local_dag(graph, dev)
+        (and the closed form where given); the counts, Q1's launch plan
+        and the plain version's ms."""
+        if isinstance(src, tuple):
+            ldag = kcl_count.prepare(torch.from_numpy(src[0]).to(dev),
+                                     torch.from_numpy(src[1]).to(dev))
+        else:
+            ldag = kcl.local_dag(src, dev)
         route = kcl_count.route(ldag.max_degree, k)
         if route != "q1":
-            got = kcl.kcl_solver(graph, k, force_expand=True, device=dev)
+            got = kcl.kcl_solver(src, k, force_expand=True, device=dev)
             print(f"[19] {label}, k {k}: widest out-degree "
                   f"{ldag.max_degree}, route {kcl.LAST_ROUTE}, {got} cliques")
             if kcl.LAST_ROUTE != "expand":
@@ -1662,19 +1760,18 @@ def kcl_phase(dev, gpu: str, g, g16):
         stats["cases"] += 1
         stats["mismatches"] += bad
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
-        classes = {c: end - first for first, end, c in
-                   kcl_count.class_slices(ldag, k)}
+        plan = kcl_count.launch_plan(ldag, k)
         print(f"[19] Q1 {label}, k {k}: {int(got.sum())} cliques, widest "
-              f"out-degree {ldag.max_degree}, {launched} launches, vertices "
-              f"by class {json.dumps(classes)}; {bad} vertices differ from "
-              f"the plain version's (plain {plain_ms:.1f} ms)")
-        if bad or launched != len(classes):
+              f"out-degree {ldag.max_degree}, {launched} launches, plan "
+              f"(first, end, dmax) {json.dumps(plan)}; {bad} vertices "
+              f"differ from the plain version's (plain {plain_ms:.1f} ms)")
+        if bad or launched != len(plan):
             fail(f"Q1 disagrees with its plain version on {label} at k {k}")
-        return got, classes, plain_ms
+        return got, plan, plain_ms
 
-    for label, graph, want in kcl_hand_cases():
-        for k in (3, 4, 5):
-            hold(label, graph, k, want)
+    for label, src, ks, want in kcl_hand_cases():
+        for k in ks:
+            hold(label, src, k, want)
     counts16, plain16_ms = {}, {}
     for k in (3, 4, 5):
         counts16[k], _, plain16_ms[k] = hold(f"rmat{SMOKE_SCALE}", g16, k)
@@ -1690,15 +1787,15 @@ def kcl_phase(dev, gpu: str, g, g16):
     launches = kcl_count.LAUNCHES
     print(json.dumps(record))
     ldag = kcl.local_dag(g, dev)
-    classes = {c: end - first for first, end, c in
-               kcl_count.class_slices(ldag, 4)}
+    plan = kcl_count.launch_plan(ldag, 4)
     solves = sum(bench.mining_repeats(MAIN_SCALE).values())
     print(f"[19] kcl bench rmat{MAIN_SCALE}: {total} 4-cliques (the TPU "
           f"record: {bench.KCL4_RECORD[MAIN_SCALE]}), route "
           f"{record['detail']['route']}, Q1 launches {launches} over {solves}"
-          f" solves, vertices by class {json.dumps(classes)}")
+          f" solves, plan (first, end, dmax) {json.dumps(plan)}; the "
+          f"widest CTA run: {json.dumps(kcl_count.cta_info(plan[0][2]))}")
     if not (record["detail"]["correct"] and launches > 0
-            and launches == solves * len(classes)):
+            and launches == solves * len(plan)):
         fail("the kcl bench missed the record, Q1, or its launches")
     # k = 3 through Q1 against the triangle route
     for label, graph, want in ((f"rmat{SMOKE_SCALE}", g16, None),
@@ -1718,6 +1815,12 @@ def kcl_phase(dev, gpu: str, g, g16):
     ms = cuda_ms(lambda: kcl_count.local_count(ldag, 4), reps=5, warmup=1)
     ms16 = cuda_ms(lambda: kcl_count.local_count(kcl.local_dag(g16, dev), 4),
                    reps=5, warmup=1)
+    # by degree class: the shipped source and its copies without the count
+    # and without the lookups (the probe's split), each class one launch
+    split = probe_q1.split(ldag, 4)
+    print(f"[19] Q1 k 4 at rmat{MAIN_SCALE} by degree class (CUDA events; "
+          f"full, build = no count, stream = no count and every lookup a "
+          f"miss; ms): " + json.dumps(split["classes"]))
     plain20, plain20_ms = timed_once(
         lambda: kcl_count.local_count_plain(ldag, 4))
     got20 = kcl_count.local_count(ldag, 4)
@@ -1741,17 +1844,24 @@ def kcl_phase(dev, gpu: str, g, g16):
     return {"name": "kcl_local_count", "route": "cuda", "source": Q1_SOURCE,
             "replaces": Q1_REPLACES, "launches": launches,
             "launches_by_path": {f"kcl bench rmat{MAIN_SCALE}": launches},
-            **stats, "k": 4, "classes": classes, "ms": ms,
-            "plain_ms": plain20_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "ms_rmat16": ms16, "plain_ms_rmat16": plain16_ms[4],
-            "bound_ms_rmat16": b16_ms, "library_ms": None}
+            **stats, "k": 4, "plan": plan,
+            "resources": kcl_count.cta_info(plan[0][2]),
+            "ms_by_class": {c: row["full"] for c, row in
+                            split["classes"].items()},
+            "split_by_class": {c: {part: row[f"split_{part}"] for part in
+                                   ("stream", "build", "count")}
+                               for c, row in split["classes"].items()},
+            "ms": ms, "plain_ms": plain20_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "ms_rmat16": ms16,
+            "plain_ms_rmat16": plain16_ms[4], "bound_ms_rmat16": b16_ms,
+            "library_ms": None}
 
 
 def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
     """Phase 20: the R-MAT-16 4-census against the TPU record, its wedge
     streams against the host oracles, the 3-census and the 4-census bench
     at R-MAT-20 (a main path: Q1's and the TC kernels' launches counted
-    around it, classes x solves, tc_per_solve being the TC bench's
+    around it, runs or classes x solves, tc_per_solve being the TC bench's
     launches a solve); the host-oracle branch must not run.  Returns the
     bench's launches by kernel."""
     from gardenia_tpu_torch import bench
@@ -1815,19 +1925,19 @@ def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
     print(json.dumps(record))
     d = record["detail"]
     solves = sum(bench.mining_repeats(MAIN_SCALE).values())
-    q1_classes = len(kcl_count.class_slices(kcl.local_dag(g, dev), 4))
-    want = {"kcl_local_count": q1_classes * solves,
+    q1_runs = len(kcl_count.launch_plan(kcl.local_dag(g, dev), 4))
+    want = {"kcl_local_count": q1_runs * solves,
             **{name: n * solves for name, n in tc_per_solve.items()}}
     print(f"[20] motif bench rmat{MAIN_SCALE}: aggregates {d['aggregates']},"
           f" {d['n_parts']} + {d['n_qparts']} stream partitions, 4-cliques "
           f"on route {d['kcl_route']}, launches {json.dumps(launches)} over "
-          f"{solves} solves (classes x solves: {json.dumps(want)}), "
+          f"{solves} solves (launches a solve x solves: {json.dumps(want)}), "
           f"4-cliques and triangles "
           f"{'hold' if d['correct'] else 'do NOT hold'}; gpu: {gpu}")
     if not d["correct"]:
         fail("the R-MAT-20 4-census misses its holds")
     if launches != want or 0 in launches.values():
-        fail(f"the motif bench's launches {launches} are not classes x "
+        fail(f"the motif bench's launches {launches} are not runs x "
              f"solves {want}")
     return launches
 

@@ -144,14 +144,33 @@ def lib() -> ctypes.CDLL:
             # (forb, rowptr, col, chosen, counter, K, C, stream)
             so.gdn_vc_core_firstfit.argtypes = [vp] * 5 + [ci, ci, vp]
             so.gdn_vc_core_firstfit.restype = ci
-            # (rowptr, colidx, verts, nverts, cnt, k, dmax, stream)
-            so.gdn_kcl_local_count.argtypes = [vp, vp, vp, ll, vp, ci, ci, vp]
+            # (rowptr, colidx, verts, nverts, cnt, counter, k, dmax,
+            #  stream)
+            so.gdn_kcl_local_count.argtypes = [vp, vp, vp, ll, vp, vp, ci,
+                                               ci, vp]
             so.gdn_kcl_local_count.restype = ci
             for name in ("gdn_kcl_min_k", "gdn_kcl_max_k",
-                         "gdn_kcl_warp_degree", "gdn_kcl_max_degree"):
+                         "gdn_kcl_warp_degree", "gdn_kcl_max_degree",
+                         "gdn_kcl_cta_threads"):
                 fn = getattr(so, name)
                 fn.argtypes = []
                 fn.restype = ci
+            for name in ("gdn_kcl_hash_bits", "gdn_kcl_group_lanes"):
+                fn = getattr(so, name)
+                fn.argtypes = [ci]
+                fn.restype = ci
+            for name in ("gdn_kcl_hash_slot", "gdn_kcl_filter_bit"):
+                fn = getattr(so, name)
+                fn.argtypes = [ci, ci]
+                fn.restype = ctypes.c_uint
+            so.gdn_kcl_filter_shift.argtypes = []
+            so.gdn_kcl_filter_shift.restype = ci
+            so.gdn_kcl_shared_bytes.argtypes = [ci]
+            so.gdn_kcl_shared_bytes.restype = ll
+            # (dmax, registers a thread, CTAs an SM)
+            so.gdn_kcl_cta_info.argtypes = [ci, ctypes.POINTER(ci),
+                                            ctypes.POINTER(ci)]
+            so.gdn_kcl_cta_info.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

@@ -5,8 +5,10 @@ through the expansion), 4, 5 and 6.  Kernel Q1's wrapper (ops/kcl_count)
 takes its plain version here, the level expansion, whose per-vertex
 counts are held to a per-vertex serial DFS; the host copies (wedge_slices,
 _member) are held to the JAX package's; edge cases (no edge, cliques, a
-star, the route at out-degree 1024 and 1025 and at k = 9) and the checks
-of the wrapper's set-up."""
+star, the route at out-degree 1024 and 1025 and at k = 9), the checks of
+the wrapper's set-up, and its host logic against hand-computed values:
+the work order, the launch plan, the hash table's and filter's sizes and
+slots, the lanes a root and the shared bytes a launch."""
 
 import math
 
@@ -186,21 +188,145 @@ def test_route_at_k_9():
 
 
 def test_class_slices_cover_each_vertex_once():
-    """The runs Q1 launches on hold every vertex with d >= k - 1 once, in
-    the class of its degree."""
-    g = from_csr_of(GRAPHS["rmat8"]())
+    """The runs Q1 launches on (its launch plan) hold every vertex with
+    d >= k - 1 once: the CTA shape's runs the out-degrees above
+    WARP_DEGREE, the warp shape's the rest, each in descending out-degree
+    with its widest as dmax (R-MAT-12: 51 vertices above 64, widest
+    77)."""
+    g = from_csr_of(generate_graph("rmat", scale=12, symmetrize=True))
     ldag = kcl.local_dag(g, "cpu")
     deg = (ldag.rowptr[1:] - ldag.rowptr[:-1]).numpy()
+    assert deg.max() > kcl_count.WARP_DEGREE
     for k in (3, 5, 8):
         seen = []
-        for first, end, dmax in kcl_count.class_slices(ldag, k):
+        plan = kcl_count.launch_plan(ldag, k)
+        assert len(plan) == 2
+        for i, (first, end, dmax) in enumerate(plan):
             verts = ldag.order[first:end].numpy()
-            lower = kcl_count.CLASSES[kcl_count.CLASSES.index(dmax) - 1] \
-                if dmax > kcl_count.CLASSES[0] else 0
-            assert ((deg[verts] > lower) & (deg[verts] <= dmax)).all()
+            assert dmax == deg[verts].max() == deg[verts[0]]
+            assert (np.diff(deg[verts]) <= 0).all()
+            big = deg[verts] > kcl_count.WARP_DEGREE
+            assert big.all() if i == 0 else not big.any()
             seen.append(verts)
         seen = np.sort(np.concatenate(seen))
         np.testing.assert_array_equal(seen, np.flatnonzero(deg >= k - 1))
+
+
+def plan_dag() -> kcl_count.LocalDag:
+    """A hand-made DAG of 101 vertices: 0 -> 1..100 (d 100), 1 -> 2..70
+    (d 69), 2 -> 3, 4, 5 (d 3), 3 -> 4, 5 (d 2), the rest without
+    arcs."""
+    rows = [range(1, 101), range(2, 71), (3, 4, 5), (4, 5)] + [()] * 97
+    rowptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    colidx = np.concatenate([np.asarray(r, np.int32) for r in rows])
+    return kcl_count.prepare(torch.from_numpy(rowptr),
+                             torch.from_numpy(colidx))
+
+
+def test_work_order_is_descending_out_degree_then_id():
+    ldag = plan_dag()
+    assert ldag.order.tolist() == [0, 1, 2, 3] + list(range(4, 101))
+    assert ldag.degrees.tolist() == [100, 69, 3, 2] + [0] * 97
+    assert ldag.max_degree == 100
+    # ties keep id order
+    rowptr = torch.tensor([0, 2, 2, 5, 6, 9, 9, 10, 10])
+    colidx = torch.tensor([1, 2, 3, 4, 5, 4, 5, 6, 7, 7], dtype=torch.int32)
+    ldag = kcl_count.prepare(rowptr, colidx)
+    assert ldag.order.tolist() == [2, 4, 0, 3, 6, 1, 5, 7]
+    assert ldag.degrees.tolist() == [3, 3, 2, 1, 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("k,plan", [
+    (3, [(0, 2, 100), (2, 4, 3)]),
+    (4, [(0, 2, 100), (2, 3, 3)]),
+    (5, [(0, 2, 100)]),
+    (8, [(0, 2, 100)]),
+])
+def test_launch_plan_on_a_hand_made_dag(k, plan):
+    assert kcl_count.launch_plan(plan_dag(), k) == plan
+
+
+@pytest.mark.parametrize("hub_degree,plan", [
+    (80, [(0, 1, 100), (1, 2, 69), (2, 4, 3)]),
+    (69, [(0, 1, 100), (1, 2, 69), (2, 4, 3)]),
+    (68, [(0, 2, 100), (2, 4, 3)]),
+    (0, [(0, 2, 100), (2, 4, 3)]),
+    (100, [(0, 2, 100), (2, 4, 3)]),
+])
+def test_launch_plan_takes_the_hubs_apart(hub_degree, plan, monkeypatch):
+    """Vertices above HUB_DEGREE launch in a run of their own, so the
+    rest is sized to its own widest vertex."""
+    monkeypatch.setattr(kcl_count, "HUB_DEGREE", hub_degree)
+    assert kcl_count.launch_plan(plan_dag(), 3) == plan
+
+
+def test_launch_plan_without_a_cta_run():
+    g = clique(6)                      # out-degrees 5, 4, 3, 2, 1, 0
+    ldag = kcl.local_dag(g, "cpu")
+    assert kcl_count.launch_plan(ldag, 3) == [(0, 4, 5)]
+    assert kcl_count.launch_plan(ldag, 6) == [(0, 1, 5)]
+    assert kcl_count.launch_plan(ldag, 7) == []
+    assert kcl_count.launch_plan(kcl.local_dag(edges_graph(4, [], []),
+                                               "cpu"), 3) == []
+
+
+@pytest.mark.parametrize("d,bits", [(1, 1), (2, 2), (3, 3), (4, 3), (5, 4),
+                                    (32, 6), (33, 7), (64, 7), (65, 8),
+                                    (665, 11), (1024, 11)])
+def test_hash_table_size(d, bits):
+    """2^bits slots, the least power of two >= 2d: at most half full."""
+    assert kcl_count.hash_bits(d) == bits
+    assert 2 * d <= 1 << bits < 4 * d or d == 1
+
+
+def test_hash_slot_hand_values():
+    # top bits of id x 2654435769 mod 2^32
+    got = kcl_count.hash_slot([0, 1, 2, 3], 11).tolist()
+    assert got == [0, 1265, 483, 1749]
+    assert kcl_count.hash_slot([12345], 7).tolist() == [80]
+    assert kcl_count.hash_slot([2 ** 31 - 1], 10).tolist() == [903]
+
+
+def test_filter_bit_hand_values():
+    # top (bits + 7) bits of id x 2246822519 mod 2^32
+    assert kcl_count.filter_bit([0, 1, 2], 7).tolist() == [0, 8570, 757]
+    assert kcl_count.filter_bit([12345], 11).tolist() == [7641]
+
+
+@pytest.mark.parametrize("W,G", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
+                                 (8, 8), (9, 16), (16, 16), (17, 32),
+                                 (21, 32), (32, 32)])
+def test_lanes_a_root(W, G):
+    assert kcl_count.group_lanes(W) == G
+
+
+@pytest.mark.parametrize("dmax,nbytes", [(33, 2956), (64, 3328),
+                                         (665, 99480), (1024, 176128)])
+def test_shared_bytes_of_the_widest_launched_vertex(dmax, nbytes):
+    """4 dmax W (the local graph) + 4 dmax (ids) + 4 + 16 bytes a slot of
+    the 2^hash_bits (the table and its 128-bit filter); the widest allowed
+    fits a block of an H100 (232,448 B)."""
+    assert kcl_count.shared_bytes(dmax) == nbytes
+    assert kcl_count.shared_bytes(kcl_count.MAX_DEGREE) <= 232448
+
+
+def test_widest_launch_is_sized_to_its_vertex_not_its_class():
+    """The R-MAT-12 DAG's CTA run is sized to its widest vertex, 77, not
+    to 128, the power of two above it."""
+    g = from_csr_of(generate_graph("rmat", scale=12, symmetrize=True))
+    ldag = kcl.local_dag(g, "cpu")
+    (_, _, dmax), _ = kcl_count.launch_plan(ldag, 4)
+    assert dmax == ldag.max_degree == 77
+    assert kcl_count.shared_bytes(dmax) == 4 * 77 * 3 + 4 * 77 + 20 * 256
+    assert kcl_count.shared_bytes(dmax) < kcl_count.shared_bytes(128)
+
+
+def test_local_count_on_the_cpu_launches_nothing():
+    ldag = kcl.local_dag(clique(9), "cpu")
+    before = kcl_count.LAUNCHES
+    got = kcl_count.local_count(ldag, 4)
+    assert kcl_count.LAUNCHES == before
+    assert int(got.sum()) == math.comb(9, 4)
 
 
 def test_prepare_refuses_what_q1_cannot_search():
@@ -216,7 +342,7 @@ def test_prepare_refuses_what_q1_cannot_search():
                           torch.tensor([1, 2, 0], dtype=torch.int32))
     ldag = kcl_count.prepare(rowptr, torch.tensor([1, 2, 0],
                                                   dtype=torch.int32))
-    assert ldag.max_degree == 2 and ldag.order.tolist() == [1, 0]
+    assert ldag.max_degree == 2 and ldag.order.tolist() == [0, 1]
 
 
 def test_kcl_solver_refuses_k_below_3_and_defaults_to_cuda():
@@ -227,3 +353,23 @@ def test_kcl_solver_refuses_k_below_3_and_defaults_to_cuda():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         kcl.kcl_solver(g, 4)
+
+
+def test_probe_edits_match_the_shipped_source():
+    """scripts/probe_q1.py (which chip_smoke.py runs) finds each of its
+    edits and constants in csrc/kcl_local_count.cu: the copies without
+    the count and without the lookups differ from the source, and from
+    each other."""
+    import os
+    from scripts import probe_q1
+    from gardenia_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, "kcl_local_count.cu")) as f:
+        text = f.read()
+    copies = {name: probe_q1.variant_text(text, edits)
+              for name, edits in probe_q1.VARIANTS.items()}
+    assert copies["full"] == text
+    assert len(set(copies.values())) == len(copies)
+    assert "count_local<3>(A, d, W)" in copies["build"]
+    assert "in_filter(filter, fbits, y[i])" not in copies["stream"]
+    changed = probe_q1.set_constants(text, {"CTA_THREADS": 256})
+    assert "constexpr int CTA_THREADS = 256;" in changed
