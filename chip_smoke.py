@@ -85,7 +85,8 @@ result:
      solve, all by the tensor-core kernel; bc: 2 x levels x arrays;
      bfs: dense-sweep levels x arrays, by the CUDA-core kernel);
      bfs_do_fused's depths held to the serial oracle, multi-source BFS's
-     128 columns to scipy's breadth-first order on the host CSR, batched
+     128 columns to a numpy bitset BFS on the host CSR (and its first 8
+     columns, with that BFS's, to scipy's breadth-first order), batched
      BC to its panel-free 'ell' route and two of its sources to the numpy
      Brandes; one spmv_hybrid_batched apply timed with CUDA events in
      turns (plain, kernel, kernel, plain): the panel kernel alone with
@@ -181,6 +182,28 @@ result:
      3-census at R-MAT-20; the bench at R-MAT-20, its 4-cliques equal to
      kcl's record and its triangles over the edges 3 x 424,573,866; the
      host-oracle branch must not run.
+  21. subgraph listing: the port's bench (--kernel sgl, diamond) at
+     R-MAT-16 against the TPU record (3,512,882,086); the main path: the
+     bench at R-MAT-20 on [20]'s graph (its wedge streams cached there),
+     Q1's launches set to 0 before and read after (runs x solves), its
+     count held to the port's 4-census (280,503,420,577) and [20]'s, on
+     the streams and route q1; the pattern engine on the card: diamond
+     against the formula and rectangle against the 4-census's 4-cycles at
+     R-MAT-12, pentagon and house at R-MAT-10 against dense 0/1
+     products (induced_fives) and at R-MAT-8 against CPU tensors, every
+     pattern against sgl_verifier on a 30-vertex graph;
+  22. frequent-subgraph mining: the port's bench (--kernel fsm, k = 2,
+     minsup 5000) at R-MAT-16 against the TPU record (2), its five label
+     aggregates against scipy's on the host CSR; the main path: the bench
+     at R-MAT-20 (the record: 73), K1's launches by route and the
+     split's set to 0 before and read after (applies x panel arrays x
+     solves, all 'tc'; no split), its aggregates against the panel-free
+     route (ops/spmv.spmv_batched over the CSR, which launches no K1);
+     K1 on the bench's bf16 0/1 operands (S = L = 11, S = L * L = 121)
+     against its plain version, exactly, and timed by CUDA events beside
+     it and its bound; fsm_solver at k = 2 and 3 (gSpan) at R-MAT-9 with
+     16 seeded random labels, minsup 16, on the card against CPU tensors.
+     Phases 21 and 22 print the peak device memory.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -211,6 +234,10 @@ K1_REL_LIMIT = 1e-5
 # truncates (measured up to 9e-6 on the densest bf16-panel rows)
 K1_BF16_REL_LIMIT = 1e-4
 BATCH_SMOKE_SOURCES = 16    # multi-source BFS and BC at R-MAT-16
+# the R-MAT-20 MS-BFS's 128 columns are held to a numpy bitset BFS
+# (bfs_depths_bits, ~0.1 s a column), and its first columns also to
+# scipy's breadth_first_order (~0.45 s a column)
+MSBFS_SCIPY_COLUMNS = 8
 SSSP_SMOKE_DELTA = 64       # the four SSSP variants at R-MAT-16
 K1_BATCH_S = (16, 100, 128, 136, 256)    # 136, 256: two column tiles
 K1_EDGE_S = (9, 16, 100, 128, 136, 256)
@@ -273,6 +300,23 @@ SGD_TPU_FINAL_RMSE = 1.28286874294281
 # the JAX package's count on the bench's R-MAT-20 graph, in three rounds
 # (BENCH_SWEEP_r2.jsonl:7, BENCH_SWEEP_r3.jsonl:6, BENCH_SWEEP_r5.jsonl:6)
 TC_RMAT20_TRIANGLES = 424_573_866
+# the diamonds of the bench's R-MAT-20 graph: the port's 4-census on an
+# NVIDIA H100 80GB HBM3 at 700 W (no TPU record exists at this scale)
+SGL_DIAMOND_RMAT20 = 280_503_420_577
+# gSpan (fsm_solver at k = 3) on the card against CPU tensors: R-MAT-9
+# with seeded random labels from an alphabet of 16 at minsup 16, where
+# level 3 stays under MAX_EMBEDDINGS and finds 388 of the 507 frequent
+# patterns (20 s on 4 CPU threads; on the degree labels level 3 passes
+# MAX_EMBEDDINGS below minsup 250 and no edge is frequent from there)
+FSM_GSPAN_SCALE, FSM_GSPAN_LABELS, FSM_GSPAN_MINSUP = 9, 16, 16
+
+
+RUN_START = time.perf_counter()
+
+
+def clock(phase: int) -> None:
+    """Print when a phase starts, in seconds since the run began."""
+    print(f"[{phase}] starts at {time.perf_counter() - RUN_START:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -869,6 +913,35 @@ def bfs_depths_scipy(g, sources) -> np.ndarray:
             depth[todo[ready]] = depth[pred[todo[ready]]] + 1
             todo = todo[~ready]
     return out
+
+
+def bfs_depths_bits(g, sources) -> np.ndarray:
+    """(m, S) int32 BFS depths of all S sources at once, a level-synchronous
+    numpy BFS on the host CSR (g symmetric): a bit a source in uint64
+    words, each level's frontier pulled along the rows by one
+    bitwise_or.reduceat over the gathered neighbour words."""
+    from gardenia_tpu_torch.core import types as T
+    S = len(sources)
+    cols = np.arange(S)
+    seen = np.zeros((g.m, -(-S // 64)), np.uint64)
+    np.bitwise_or.at(seen, (np.asarray(sources), cols // 64), np.left_shift(
+        np.uint64(1), (cols % 64).astype(np.uint64)))
+    out = np.full((g.m, S), T.MYINFINITY, np.int32)
+    rows = np.diff(g.rowptr) > 0
+    starts = np.asarray(g.rowptr[:-1], np.int64)[rows]
+    frontier, level = seen.copy(), 0
+    while True:
+        bits = np.unpackbits(frontier.view(np.uint8), axis=1,
+                             bitorder="little")[:, :S].astype(bool)
+        if not bits.any():
+            return out
+        out[bits] = level
+        pulled = np.zeros_like(frontier)
+        pulled[rows] = np.bitwise_or.reduceat(frontier[g.colidx], starts,
+                                              axis=0)
+        frontier = pulled & ~seen
+        seen |= frontier
+        level += 1
 
 
 def scipy_csr(g, data=None):
@@ -1863,7 +1936,7 @@ def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
     at R-MAT-20 (a main path: Q1's and the TC kernels' launches counted
     around it, runs or classes x solves, tc_per_solve being the TC bench's
     launches a solve); the host-oracle branch must not run.  Returns the
-    bench's launches by kernel."""
+    bench's launches by kernel and its census."""
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.core.generate import generate_graph
     from gardenia_tpu_torch.mining import kcl, motif, wedgestream
@@ -1883,7 +1956,9 @@ def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
     # R-MAT-16 and R-MAT-14 (the card's wedge sweep), c_non at R-MAT-14,
     # where codegree_cycle_quads makes one numpy pass of 77.8M wedges (at
     # R-MAT-16, 622.6M wedges in 4 passes, minutes on one core; there the
-    # census's 4-cycles and diamonds equal to the record hold c_non)
+    # census's 4-cycles and diamonds equal to the record hold c_non, and
+    # [21] holds the 4-cycles at R-MAT-12 to the pattern engine's
+    # rectangles)
     g14 = generate_graph("rmat", scale=CC_UNIFORM_SCALE, degree=16,
                          symmetrize=True)
     for label, graph, quads_too in ((f"rmat{SMOKE_SCALE}", g16, False),
@@ -1939,7 +2014,301 @@ def motif_phase(dev, gpu: str, g, g16, tc_per_solve: dict) -> dict:
     if launches != want or 0 in launches.values():
         fail(f"the motif bench's launches {launches} are not runs x "
              f"solves {want}")
+    return launches, d["census"]
+
+
+def induced_fives(g, name: str, dev, block: int = 1 << 26) -> int:
+    """The induced pentagons or houses of the symmetric graph g by dense
+    0/1 products, independent of the pattern engine.  Around each vertex
+    c, with N its neighbours and M the rest but c: a pentagon c-b-a-e-d
+    has b, d in N not adjacent, a and e in M, a ~ b, a ~ e, e ~ d and no
+    other edge; a house with roof c is the same with b ~ d.  For the
+    ordered pair (b, d), u[b, d] = A[b, M] * (1 - A[d, M]) marks the a's,
+    and u[b, d] @ A[M, M] . u[d, b] counts the (a, e).  Each pentagon
+    comes 10 times (5 vertices, 2 orders), each house twice (its roof is
+    its one vertex whose two neighbours are adjacent).  f32 is exact
+    while |V|^2 < 2^24: no sum of a pair exceeds |V|^2."""
+    import torch
+    A = torch.zeros((g.m, g.m), dtype=torch.float32, device=dev)
+    src = np.repeat(np.arange(g.m), np.diff(g.rowptr))
+    A[torch.from_numpy(src).to(dev), torch.from_numpy(
+        g.colidx.astype(np.int64)).to(dev)] = 1
+    total = 0.0
+    for c in range(g.m):
+        nb = torch.from_numpy(
+            g.colidx[g.rowptr[c]:g.rowptr[c + 1]].astype(np.int64)).to(dev)
+        d = nb.numel()
+        if d < 2:
+            continue
+        rest = A[c] == 0
+        rest[c] = False
+        X = A[nb][:, rest]
+        Amm = A[rest][:, rest]
+        pair = A[nb][:, nb]
+        if name == "pentagon":
+            pair = 1 - pair - torch.eye(d, device=dev)
+        step = max(1, block // max(1, d * X.shape[1]))
+        for lo in range(0, d, step):
+            hi = min(d, lo + step)
+            U = X[lo:hi, None, :] * (1 - X[None, :, :])        # u[b, d]
+            V = X[None, :, :] * (1 - X[lo:hi, None, :])        # u[d, b]
+            T = (U.reshape(-1, X.shape[1]) @ Amm).view_as(U)
+            total += float(((T * V).sum(-1).double()
+                            * pair[lo:hi].double()).sum())
+    return int(round(total)) // (10 if name == "pentagon" else 2)
+
+
+def sgl_phase(dev, gpu: str, g, g16, census20: dict) -> dict:
+    """Phase 21: SGL diamond's bench at R-MAT-16 against the TPU record and
+    at R-MAT-20 (a main path: Q1's launches counted around it, runs x
+    solves) against the port's recorded census and [20]'s; the pattern
+    engine on the card: diamond against the formula and rectangle against
+    the 4-census's 4-cycles at R-MAT-12, pentagon and house at R-MAT-10
+    against induced_fives' dense products and at R-MAT-8 against the
+    same engine on CPU tensors; every pattern against sgl_verifier on a
+    30-vertex graph.
+    Returns Q1's launches in the R-MAT-20 bench."""
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.mining import kcl, motif, sgl
+    from gardenia_tpu_torch.mining.pattern import PATTERNS
+    from gardenia_tpu_torch.ops import kcl_count
+    record, _, _ = bench.bench_sgl(SMOKE_SCALE, dev, g=g16)
+    print(json.dumps(record))
+    d = record["detail"]
+    print(f"[21] sgl bench rmat{SMOKE_SCALE}: {d['count']} diamonds (the TPU "
+          f"record: {bench.SGL_DIAMOND_RECORD[SMOKE_SCALE]}), triangles from "
+          f"the {d['route']}, 4-cliques on route {d['kcl_route']}")
+    if not d["correct"] or d["route"] != "streams":
+        fail("SGL diamond at R-MAT-16 misses the TPU record or the streams")
+    # the main path: the sgl bench on [20]'s graph, Q1's launches counted
+    kcl_count.LAUNCHES = 0
+    record, _, total = bench.bench_sgl(MAIN_SCALE, dev, g=g)
+    launches = kcl_count.LAUNCHES
+    print(json.dumps(record))
+    d = record["detail"]
+    solves = sum(bench.mining_repeats(MAIN_SCALE).values())
+    runs = len(kcl_count.launch_plan(kcl.local_dag(g, dev), 4))
+    print(f"[21] sgl bench rmat{MAIN_SCALE}: {total} diamonds (the port's "
+          f"4-census: {SGL_DIAMOND_RMAT20}; [20]'s census: "
+          f"{census20['4-diamond']}), triangles from the {d['route']}, "
+          f"4-cliques on route {d['kcl_route']}, Q1 launches {launches} over "
+          f"{solves} solves ({runs} runs a solve), solve {d['ms']:.1f} ms, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; gpu: {gpu}")
+    if not (d["correct"] and total == SGL_DIAMOND_RMAT20
+            == census20["4-diamond"]):
+        fail("SGL diamond at R-MAT-20 misses its holds")
+    if launches != runs * solves:
+        fail(f"Q1's launches in the sgl bench {launches} != {runs} x "
+             f"{solves}")
+    # the pattern engine on the card
+    g12 = generate_graph("rmat", scale=12, degree=16, symmetrize=True)
+    engine, engine_s = {}, {}
+    for name in ("diamond", "rectangle"):
+        t0 = time.perf_counter()
+        engine[name] = sgl.sgl_solver(g12, name, use_formula=False,
+                                      device=dev)
+        engine_s[name] = time.perf_counter() - t0
+    formula = sgl.sgl_solver(g12, "diamond", device=dev)
+    cycles = motif.motif_solver(g12, 4, device=dev)["4-cycle"]
+    print(f"[21] pattern engine rmat12: diamond {engine['diamond']} "
+          f"({engine_s['diamond']:.2f} s; the formula: {formula}), "
+          f"rectangle {engine['rectangle']} ({engine_s['rectangle']:.2f} s;"
+          f" the 4-census's 4-cycles: {cycles})")
+    if engine["diamond"] != formula or engine["rectangle"] != cycles:
+        fail("the pattern engine disagrees with the formula or the census "
+             "at R-MAT-12")
+    g10 = generate_graph("rmat", scale=10, degree=16, symmetrize=True)
+    g8 = generate_graph("rmat", scale=8, degree=16, symmetrize=True)
+    for name in ("pentagon", "house"):
+        t0 = time.perf_counter()
+        n10 = sgl.sgl_solver(g10, name, device=dev)
+        s10 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense10 = induced_fives(g10, name, dev)
+        dense_s = time.perf_counter() - t0
+        on_card = sgl.sgl_solver(g8, name, device=dev)
+        on_cpu = sgl.sgl_solver(g8, name, device="cpu")
+        print(f"[21] {name}: rmat10 {n10} on the card ({s10:.2f} s), dense "
+              f"products {dense10} ({dense_s:.2f} s); rmat8 {on_card} on the "
+              f"card, {on_cpu} on CPU tensors")
+        if n10 != dense10:
+            fail(f"{name} at R-MAT-10 differs from the dense products")
+        if on_card != on_cpu:
+            fail(f"{name} on the card differs from CPU tensors")
+    g30 = sym_graph(30, *np.random.default_rng(30).integers(0, 30, (2, 150)))
+    for name in sorted(PATTERNS):
+        got = sgl.sgl_solver(g30, name, device=dev)
+        want = sgl.sgl_verifier(g30, name)
+        if got != want:
+            fail(f"{name} on a 30-vertex graph: {got}, sgl_verifier {want}")
+    print(f"[21] every pattern on a 30-vertex graph equals sgl_verifier; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def fsm_scipy_aggregates(g, lab: np.ndarray, L: int):
+    """fsm_agg's five label aggregates of g by scipy, int64, on the host
+    CSR in g's own vertex order (they are sums by label, so the order does
+    not matter)."""
+    from gardenia_tpu_torch.mining import fsm_agg
+    A = scipy_csr(g, np.ones(g.nnz, np.int64))
+    O = (lab[:, None] == np.arange(L)[None, :]).astype(np.int64)
+    C = A @ O
+    E1, E2 = (C >= 1).astype(np.int64), (C >= 2).astype(np.int64)
+    plb, plc = np.concatenate([np.stack(c) for c in
+                               fsm_agg.lane_chunks(L)], axis=1)
+    H1 = ((A @ (O[:, plb] * E1[:, plc])) >= 1).astype(np.int64)
+    H2 = ((A @ (O[:, plb] * E2[:, plc])) >= 1).astype(np.int64)
+    return (O.T @ H1, O.T @ H2, O.T @ (E1[:, plb] * E1[:, plc]), O.T @ E2,
+            O.T @ E1)
+
+
+def fsm_phase(dev, gpu: str, g, g16) -> dict:
+    """Phase 22: FSM's bench at R-MAT-16 against the TPU record, its five
+    label aggregates against scipy's; at R-MAT-20 (a main path: K1's
+    launches by route and the split's counted around it, 3 applies x
+    panel arrays x solves on the 'tc' route, no split) against the TPU
+    record, its aggregates against the panel-free route (ops/spmv.
+    spmv_batched over the CSR, no K1); K1 held to its plain version on
+    the bench's operands (S = L and L*L, bf16 0/1: exact) and timed there
+    by CUDA events beside the plain version and its bound; fsm_solver at
+    k = 2 and 3 (gSpan) on random labels on the card against CPU tensors.  Returns K1's entry
+    numbers for the kernels line."""
+    import torch
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.core import views
+    from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.mining import fsm, fsm_agg
+    from gardenia_tpu_torch.ops import panel, spmv
+    record, _, _ = bench.bench_fsm(SMOKE_SCALE, dev, g=g16)
+    print(json.dumps(record))
+    lab16, L16 = fsm_agg.label_ids(g16)
+    got16, _ = fsm_agg.fsm_aggregates(g16, device=dev)
+    want16 = fsm_scipy_aggregates(g16, lab16, L16)
+    same16 = all(np.array_equal(a, b) for a, b in zip(got16, want16))
+    found16 = record["detail"]["frequent_patterns"]
+    print(f"[22] fsm bench rmat{SMOKE_SCALE}: {found16} frequent patterns "
+          f"(the TPU record: "
+          f"{bench.FSM2_MINSUP5000_RECORD[SMOKE_SCALE]}), L {L16}; the five "
+          f"aggregates {'equal' if same16 else 'DIFFER from'} scipy's")
+    if not record["detail"]["correct"] or not same16:
+        fail("FSM at R-MAT-16 misses the TPU record or scipy's aggregates")
+    # the main path: the fsm bench on [20]'s graph, K1's launches counted
+    panel.LAUNCHES.update(simt=0, tc=0)
+    panel.SPLIT_LAUNCHES["split"] = 0
+    record, _, total = bench.bench_fsm(MAIN_SCALE, dev, g=g)
+    routes, split = dict(panel.LAUNCHES), panel.SPLIT_LAUNCHES["split"]
+    print(json.dumps(record))
+    d = record["detail"]
+    _, hyb, _ = views.relabeled_hybrid(g, dev, reverse=False)
+    arrays = len(hyb.dense)
+    solves = 2                       # bench_fsm: one warm-up, one timed
+    # an apply for the label counts, two a lane chunk
+    want_tc = (1 + 2 * d["lane_chunks"]) * arrays * solves
+    print(f"[22] fsm bench rmat{MAIN_SCALE}: {total} frequent patterns (the "
+          f"TPU record: {bench.FSM2_MINSUP5000_RECORD[MAIN_SCALE]}), L "
+          f"{d['labels']}, {d['lane_chunks']} lane chunks, K1 launches "
+          f"{json.dumps(routes)} over {solves} solves (3 applies x {arrays} "
+          f"arrays x solves: {want_tc} 'tc'), split launches {split}, solve "
+          f"{d['ms']:.1f} ms, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; gpu: {gpu}")
+    if not d["correct"] or total != bench.FSM2_MINSUP5000_RECORD[MAIN_SCALE]:
+        fail("FSM at R-MAT-20 misses the TPU record")
+    if routes != {"simt": 0, "tc": want_tc} or split:
+        fail(f"K1's launches in the fsm bench {routes}, split {split}: not "
+             f"{want_tc} on 'tc' and none else")
+    # the aggregates against the panel-free route, in g's own order
+    lab, L = fsm_agg.label_ids(g)
+    rows, cols = views.coo_sorted(g, dev)
+    offsets = spmv.row_offsets(rows, g.m)
+
+    def csr_apply(x2d):
+        return torch.cat([spmv.spmv_batched(rows, cols, x2d[:, c:c + 32],
+                                            num_rows=g.m, offsets=offsets)
+                          for c in range(0, x2d.shape[1], 32)], dim=1)
+    panel.LAUNCHES.update(simt=0, tc=0)
+    want20 = fsm_agg.aggregates(csr_apply, torch.from_numpy(lab).to(dev), L)
+    if sum(panel.LAUNCHES.values()):
+        fail("the panel-free route launched K1")
+    got20, _ = fsm_agg.fsm_aggregates(g, device=dev)
+    same20 = all(np.array_equal(a, b) for a, b in zip(got20, want20))
+    print(f"[22] the five aggregates at rmat{MAIN_SCALE} "
+          f"{'equal' if same20 else 'DIFFER from'} the panel-free route's")
+    if not same20:
+        fail("the R-MAT-20 aggregates differ from the panel-free route's")
+    # K1 on the bench's operands: the one-hot labels (S = L) and the
+    # lane matrix B1 (S = L * L), against its plain version and timed
+    apply, old_of_new = fsm_agg.hybrid_apply(g, dev)
+    lab_d = torch.from_numpy(lab).to(dev)[old_of_new]
+    onehot = lab_d[:, None] == torch.arange(L, device=dev)[None, :]
+    E1 = apply(onehot.to(torch.bfloat16)) >= 0.5
+    (plb, plc), = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+                   for a, b in fsm_agg.lane_chunks(L)]
+    ops_ = {L: onehot.to(torch.bfloat16),
+            L * L: (onehot[:, plb] & E1[:, plc]).to(torch.bfloat16)}
+    qx = (g.m + 127) // 128
+    pairs = [(p.panel, p.src) for p in hyb.dense]
+    slots = sum(p.src.shape[0] for p in hyb.dense)
+    panel_bytes = sum(p.panel.numel() * p.panel.element_size()
+                      + p.src.numel() * 4 for p in hyb.dense)
+    _, _, nz = panel_work(hyb, 0)
+    out = {"mismatches": 0, "by_columns": {}}
+    for S, x2d in ops_.items():
+        x3 = torch.zeros((qx * 128, S), dtype=torch.bfloat16, device=dev)
+        x3[:g.m] = x2d
+        x3 = x3.view(qx, 128, S)
+        bad = sum(int((k_ != p_).sum()) for k_, p_ in zip(
+            panel.dense_panel_matmul_arrays(pairs, x3, S),
+            [panel.dense_panel_matmul_plain(pn, src, x3, S)
+             for pn, src in pairs]))
+        out["mismatches"] += bad
+        ms_, _ = turns({"kernel": lambda: panel.dense_panel_matmul_arrays(
+            pairs, x3, S), "plain": lambda: [
+            panel.dense_panel_matmul_plain(pn, src, x3, S)
+            for pn, src in pairs]}, reps={"kernel": 5, "plain": 1})
+        b_ms, b_by = bound(panel_bytes + qx * 128 * S * 2
+                           + slots * 128 * S * 4, 2 * nz * S,
+                           TENSOR_BF16_OPS_PER_S)
+        out["by_columns"][S] = {"ms": ms_["kernel"], "plain_ms": ms_["plain"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "padded_columns": panel.padded_columns(S)}
+        print(f"[22] K1 'tc' on the fsm operand S = {S} (padded to "
+              f"{panel.padded_columns(S)}): {bad} elements differ from the "
+              f"plain version; kernel {ms_['kernel']:.3f} ms, plain "
+              f"{ms_['plain']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms_['kernel']:.2f} of it; gpu: {gpu}")
+        torch.cuda.empty_cache()
+    if out["mismatches"]:
+        fail("K1 differs from its plain version on the fsm operands")
+    del ops_, E1, onehot
+    # gSpan (k = 3) on the card against CPU tensors
+    gk = generate_graph("rmat", scale=FSM_GSPAN_SCALE, degree=16,
+                        symmetrize=True)
+    labk = np.random.default_rng(FSM_GSPAN_SCALE).integers(
+        0, FSM_GSPAN_LABELS, gk.m)
+    by_k = {}
+    for k in (2, 3):
+        t0 = time.perf_counter()
+        on_card = fsm.fsm_solver(gk, k, FSM_GSPAN_MINSUP, labk, device=dev)
+        card_s = time.perf_counter() - t0
+        on_cpu = fsm.fsm_solver(gk, k, FSM_GSPAN_MINSUP, labk, device="cpu")
+        by_k[k] = on_card
+        print(f"[22] fsm_solver k {k} minsup {FSM_GSPAN_MINSUP} "
+              f"rmat{FSM_GSPAN_SCALE}, {FSM_GSPAN_LABELS} random labels: "
+              f"{on_card} on the card ({card_s:.1f} s), {on_cpu} on CPU "
+              f"tensors; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if on_card != on_cpu:
+            fail(f"fsm_solver at k = {k} on the card differs from CPU "
+                 f"tensors")
+    if not by_k[3] > by_k[2] > 0:
+        fail("gSpan's level 3 found no frequent pattern")
+    out["launches"] = routes["tc"]
+    return out
 
 
 def main() -> None:
@@ -1962,6 +2331,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. environment ---------------------------------------------------
+    clock(1)
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
     nvcc_release = [ln for ln in run([_build.find_nvcc(), "--version"])
@@ -1973,6 +2343,7 @@ def main() -> None:
     print(f"[1] nvcc: {nvcc_release[0].strip() if nvcc_release else '?'}")
 
     # ---- 2. build ---------------------------------------------------------
+    clock(2)
     t0 = time.perf_counter()
     so = _build.build(force=True)
     _build.lib()
@@ -1988,6 +2359,7 @@ def main() -> None:
     print(f"[2] K1 tensor-core kernel: {json.dumps(tc_info)}")
 
     # ---- 3. K1 against its plain version, on the card ---------------------
+    clock(3)
     # panel arrays checked, and those at or over K1_REL_LIMIT
     k1_stats = {"arrays_checked": 0, "mismatches": 0}
     g16 = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
@@ -2032,6 +2404,7 @@ def main() -> None:
         fail(f"PageRank on the card disagrees with the serial oracle: {l1}")
 
     # ---- 4. the main path: the bench's PR at R-MAT-20 ---------------------
+    clock(4)
     t0 = time.perf_counter()
     g = bench.get_graph(MAIN_SCALE)
     t_gen = time.perf_counter() - t0
@@ -2129,6 +2502,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 5. TC kernels against their plain versions; R-MAT-16 TC --------
+    clock(5)
     from gardenia_tpu_torch.ops import tc_count as tcc
     from gardenia_tpu_torch.solvers import tc
     stats = {name: {"mismatches": 0, "max_abs_err": 0, "pairs_checked": 0}
@@ -2157,6 +2531,7 @@ def main() -> None:
         fail(f"TC bsearch counts {got}, the serial oracle {want16}")
 
     # ---- 6. the TC main path: the bench's TC at R-MAT-20 ------------------
+    clock(6)
     t0 = time.perf_counter()
     dag = tc.tc_dag(g)                  # relabel cached by phase 4, orient
     t_orient = time.perf_counter() - t0
@@ -2277,6 +2652,7 @@ def main() -> None:
     print("[6] TC kernels vs plain: " + json.dumps(stats))
 
     # ---- 7. K2 against its plain version; CC on uniform-14 ---------------
+    clock(7)
     from gardenia_tpu_torch.cli import same_components
     from gardenia_tpu_torch.ops import minselect
     from gardenia_tpu_torch.ops.semiring import I32_MIN_SELECT2
@@ -2319,6 +2695,7 @@ def main() -> None:
         fail(f"K2 launched {k2_uniform} times in the {lbl} cc_sv solve")
 
     # ---- 8. the CC main path: the bench's CC at R-MAT-20 ------------------
+    clock(8)
     solves = bench.WARMUP + bench.ITERS
     minselect.LAUNCHES = 0
     record, g, res_cc = bench.bench_cc(MAIN_SCALE, dev, g=g)
@@ -2402,6 +2779,7 @@ def main() -> None:
 
 
     # ---- 9. K1 at the batched shape against its plain version ------------
+    clock(9)
     from gardenia_tpu_torch.cli import bc_close
     from gardenia_tpu_torch.solvers import bc, bfs
     kb_stats = {"arrays_checked": 0, "mismatches": 0, "max_abs_err": 0.0,
@@ -2443,6 +2821,7 @@ def main() -> None:
           f"{kb_stats['w32_rel_bf16']:.3e}")
 
     # ---- 10. BFS, multi-source BFS and BC on R-MAT-16 --------------------
+    clock(10)
     src16 = int(np.argmax(g16.degrees))
     t0 = time.perf_counter()
     want_d16 = oracles.bfs_serial(g16, src16)
@@ -2501,6 +2880,7 @@ def main() -> None:
             fail(f"bc_batched ({layout}) disagrees with the reference")
 
     # ---- 11. the BFS / MS-BFS / BC main path at R-MAT-20 -----------------
+    clock(11)
     solves = bench.WARMUP + bench.ITERS
     taken = []
     pick = bfs._pick_branch
@@ -2564,15 +2944,23 @@ def main() -> None:
         fail(f"msbfs K1 launches {ms_routes} != levels x arrays x solves, "
              f"all by the tensor-core kernel")
     t0 = time.perf_counter()
-    want_ms = bfs_depths_scipy(g, np.arange(SOURCES))
+    want_ms = bfs_depths_bits(g, np.arange(SOURCES))
+    bits_s = time.perf_counter() - t0
     bad_cols = int((res_ms.dist.cpu().numpy() != want_ms).any(axis=0).sum())
-    print(f"[11] msbfs depths vs scipy breadth_first_order: {bad_cols} of "
-          f"{SOURCES} columns differ ({time.perf_counter() - t0:.1f} s); "
-          f"sources that reach more than themselves: "
+    t0 = time.perf_counter()
+    scipy_ms = bfs_depths_scipy(g, np.arange(MSBFS_SCIPY_COLUMNS))
+    bad_scipy = int((scipy_ms != want_ms[:, :MSBFS_SCIPY_COLUMNS]).any(
+        axis=0).sum())
+    print(f"[11] msbfs depths vs a numpy bitset BFS: {bad_cols} of "
+          f"{SOURCES} columns differ ({bits_s:.1f} s); that BFS vs scipy "
+          f"breadth_first_order: {bad_scipy} of its first "
+          f"{MSBFS_SCIPY_COLUMNS} columns differ "
+          f"({time.perf_counter() - t0:.1f} s); sources that reach more "
+          f"than themselves: "
           f"{int(((want_ms < bfs.INF).sum(axis=0) > 1).sum())}")
-    if bad_cols or tuple(res_ms.dist.shape) != (g.m, SOURCES):
+    if bad_cols or bad_scipy or tuple(res_ms.dist.shape) != (g.m, SOURCES):
         fail("bfs_multi_source disagrees with the independent reference")
-    del res_ms, want_ms
+    del res_ms, want_ms, scipy_ms
 
     bc_solves = bench.BC_WARMUP + bench.BC_ITERS
     torch.cuda.synchronize()
@@ -2745,6 +3133,7 @@ def main() -> None:
     del xf, xm, x3f, x3m
 
     # ---- 12. C5: cc_sv's ell layout beside hybrid ------------------------
+    clock(12)
     from gardenia_tpu_torch.core.graph import from_csr_of
     for label, graph in ((f"rmat{MAIN_SCALE}", g),
                          (f"uniform{CC_UNIFORM_SCALE}", gu)):
@@ -2783,28 +3172,36 @@ def main() -> None:
     print(f"[12] gpu: {gpu}")
 
     # ---- 13. SpMV: threshold-64 layouts, variants, the R-MAT-20 bench ----
+    clock(13)
     spmv13 = spmv_phase(dev, gpu, g, hyb, k1_stats)
 
     # ---- 14. SSSP: four variants at R-MAT-16, the grid-1024 bench --------
+    clock(14)
     sssp_phase(dev, gpu)
 
     # ---- 15. MST, SCC, clustering and random walks ------------------------
+    clock(15)
     mst_scc_phase(dev, gpu, g)
 
     # ---- 16. VC: V1 against its plain version, the solver, the bench ------
+    clock(16)
     v1_entry, g16 = vc_phase(dev, gpu, g)
 
     # ---- 17. SymGS: the serial sweep at R-MAT-16, the R-MAT-20 bench ------
+    clock(17)
     symgs_phase(dev, gpu, g, g16)
 
     # ---- 18. SGD: the f64 replica at R-MAT-16, the R-MAT-20 bench ---------
+    clock(18)
     sgd_phase(dev, gpu, g, g16)
 
     # ---- 19. kCL: Q1 against its plain version, the R-MAT-20 bench --------
+    clock(19)
     q1_entry = kcl_phase(dev, gpu, g, g16)
 
     # ---- 20. motif: the census at R-MAT-16 and R-MAT-20 -------------------
-    motif_launches = motif_phase(
+    clock(20)
+    motif_launches, census20 = motif_phase(
         dev, gpu, g, g16,
         {name: n // (bench.TC_WARMUP + bench.TC_ITERS)
          for name, n in tc_launches.items()})
@@ -2812,6 +3209,16 @@ def main() -> None:
     q1_entry["launches"] += motif_launches["kcl_local_count"]
     q1_entry["launches_by_path"][motif_path] = \
         motif_launches["kcl_local_count"]
+
+    # ---- 21. SGL: diamond at R-MAT-16 and R-MAT-20, the pattern engine ---
+    clock(21)
+    sgl_q1 = sgl_phase(dev, gpu, g, g16, census20)
+    q1_entry["launches"] += sgl_q1
+    q1_entry["launches_by_path"][f"sgl bench rmat{MAIN_SCALE}"] = sgl_q1
+
+    # ---- 22. FSM: the label aggregate at R-MAT-16 and R-MAT-20, gSpan ----
+    clock(22)
+    fsm22 = fsm_phase(dev, gpu, g, g16)
 
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
@@ -2833,10 +3240,12 @@ def main() -> None:
         # operand's (BC's sweep); the bf16 operand's (MS-BFS's) beside them
         "name": "dense_panel_matmul_tc", "route": "cuda",
         "source": K1_TC_SOURCE, "replaces": K1_REPLACES, "columns": SOURCES,
-        "launches": ms_routes["tc"] + bc_routes["tc"],
+        "launches": ms_routes["tc"] + bc_routes["tc"] + fsm22["launches"],
         "launches_by_path": {f"msbfs bench rmat{MAIN_SCALE}": ms_routes["tc"],
-                             f"bc bench rmat{MAIN_SCALE}": bc_routes["tc"]},
-        "mismatches": kb_stats["mismatches"],
+                             f"bc bench rmat{MAIN_SCALE}": bc_routes["tc"],
+                             f"fsm bench rmat{MAIN_SCALE}":
+                             fsm22["launches"]},
+        "mismatches": kb_stats["mismatches"] + fsm22["mismatches"],
         "max_abs_err": kb_stats["max_abs_err"],
         "ms": kb_ms["f32"]["kernel"], "plain_ms": kb_ms["f32"]["plain"],
         "bound_ms": kb_bound["f32"][0], "bound_by": kb_bound["f32"][1],
@@ -2851,6 +3260,9 @@ def main() -> None:
         "w32_rel_bf16": kb_stats["w32_rel_bf16"],
         "dense_with_index_add_ms": dense128_ms["f32"],
         "dense_with_index_add_ms_bf16_operand": dense128_ms["bf16"],
+        # the fsm bench's bf16 0/1 operands: S = L labels, S = L * L lanes
+        **{f"{k}_fsm_s{S}": v for S, row in fsm22["by_columns"].items()
+           for k, v in row.items()},
         **lib128["f32"],
         **{f"{k}_bf16_operand": v for k, v in lib128["bf16"].items()}}, {
         # the f32 operand's split into three bf16 terms, once an apply of
@@ -2890,6 +3302,7 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     entries.append(v1_entry)
     entries.append(q1_entry)
+    print(f"[22] the whole run: {time.perf_counter() - RUN_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

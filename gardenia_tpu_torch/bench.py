@@ -82,6 +82,23 @@ repo's bench.py:
        the streams'; at both the 4-cliques took route q1; elsewhere the
        4-cliques equal kcl_solver's and the triangles over the edges 3 x
        tc_solver's.
+  sgl — `sgl_diamond_meps_rmat{scale}`: edges / solve seconds / 1e6 of
+       sgl_solver's diamond formula (wedge-stream triangles and kcl's
+       4-cliques), repeats as kcl; vs 100 M edges/s; detail.count, route
+       ("streams" or "wedge_sweep"), kcl_route and q1_launches (over all
+       solves), and correct: the count equals the TPU record at scale 16
+       (3,512,882,086); at 20 the 4-cliques equal kcl's record, the
+       triangles over the edges 3 x 424,573,866, the route is streams and
+       kcl's q1; elsewhere the count equals sgl_verifier's when |V| <= 40,
+       else the pattern engine's (use_formula=False) on the same device.
+  fsm — `fsm2_minsup5000_meps_rmat{scale}`: edges / solve seconds / 1e6 of
+       fsm_solver at k = 2, minsup 5000, on the degree-bucket labels (the
+       label aggregate over the forward hybrid layout), one timed solve
+       after one warm-up; vs 5 M edges/s; detail.frequent_patterns,
+       labels (L), lane_chunks, k1_launches by route over both solves and
+       split_launches (0: the operands are bf16), and correct: the count
+       equals the TPU record (2 at scale 16, 73 at 20), else fsm_gspan's
+       on the same device.
 The graph is generated anew from the generator's fixed seed in every
 run; nothing is cached on disk.  `detail.device` names the card the
 number was taken on.  Numbers are printed unrounded: a slow CPU rate
@@ -89,7 +106,7 @@ must not round to 0.
 
 Run: python -m gardenia_tpu_torch.bench
          [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc,vc,symgs,sgd,
-                    kcl,motif}]
+                    kcl,motif,sgl,fsm}]
                                         [--scale 20] [--device cuda]
 """
 
@@ -118,8 +135,10 @@ BASELINE_SYMGS_GFLOPS = 30.0
 BASELINE_SGD_MRPS = 500.0
 BASELINE_KCL4_MCPS = 200.0    # M 4-cliques listed / s
 BASELINE_MOTIF4_MEPS = 50.0   # M edges / s for the 4-motif census
+BASELINE_SGL_MEPS = 100.0     # M edges / s for SGL diamond
+BASELINE_FSM_MEPS = 5.0       # M edges / s for FSM k = 2
 # the JAX package's answers on the bench's graphs (BENCH_SWEEP_r5.jsonl:
-# 13, 14, 16, 17; the triangles: BENCH_SWEEP_r2.jsonl:7), which a solve
+# 11-14, 16, 17, 21; the triangles: BENCH_SWEEP_r2.jsonl:7), which a solve
 # at these scales must give exactly
 KCL4_RECORD = {16: 291_554_165, 20: 17_113_600_315}
 TC_RECORD = {20: 424_573_866}
@@ -128,6 +147,9 @@ MOTIF4_RECORD = {16: {"4-path": 122_915_187_566, "4-star": 505_729_627_628,
                       "4-tailed-triangle": 48_230_073_860,
                       "4-diamond": 3_512_882_086,
                       "4-clique": 291_554_165}}
+SGL_DIAMOND_RECORD = {16: 3_512_882_086}
+FSM2_MINSUP5000_RECORD = {16: 2, 20: 73}
+FSM_K, FSM_MINSUP = 2, 5000       # bench.py:545
 SGD_EPOCHS, SGD_STEP = 10, 0.1   # bench.py:290-331
 SPMV_REPS = 8             # applies a timed SpMV solve, as bench.py:142
 SSSP_DELTA = 1024         # bench.py:335-369
@@ -588,11 +610,92 @@ def bench_motif(scale: int, device="cuda", g=None):
     return record, g, census
 
 
+def bench_sgl(scale: int, device="cuda", g=None):
+    """(record, graph, diamond count) of the SGL benchmark (bench.py:
+    525-542); g, when given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.mining import sgl
+    from gardenia_tpu_torch.ops import kcl_count
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = kcl_count.LAUNCHES
+    total, secs = time_op(lambda: sgl.sgl_solver(g, "diamond", device=dev),
+                          device=dev, **mining_repeats(scale))
+    launches = kcl_count.LAUNCHES - before
+    last = sgl.LAST_ROUTE
+    if scale in SGL_DIAMOND_RECORD:
+        check = "record"
+        correct = (total == SGL_DIAMOND_RECORD[scale]
+                   and last["kcl_route"] == "q1")
+    elif scale in KCL4_RECORD:
+        check = "record"
+        correct = (last["k4"] == KCL4_RECORD[scale]
+                   and last["tri_sum"] == 3 * TC_RECORD[scale]
+                   and last["route"] == "streams"
+                   and last["kcl_route"] == "q1")
+    elif g.m <= 40:
+        check, correct = "verifier", total == sgl.sgl_verifier(g, "diamond")
+    else:
+        check = "engine"
+        correct = total == sgl.sgl_solver(g, "diamond", use_formula=False,
+                                          device=dev)
+    meps = g.nnz / secs / 1e6
+    record = {"metric": f"sgl_diamond_meps_rmat{scale}", "value": meps,
+              "unit": "M edges/s", "vs_baseline": meps / BASELINE_SGL_MEPS,
+              "detail": {"count": int(total), "ms": secs * 1e3,
+                         "route": last["route"],
+                         "kcl_route": last["kcl_route"],
+                         "q1_launches": launches,
+                         "check": check, "correct": bool(correct),
+                         "nnz": g.nnz, "m": g.m, "device": device_name(dev)}}
+    return record, g, total
+
+
+def bench_fsm(scale: int, device="cuda", g=None):
+    """(record, graph, count) of the FSM benchmark (bench.py:545-566) at
+    k = FSM_K, minsup FSM_MINSUP, on the degree-bucket labels; g, when
+    given, is the graph get_graph(scale) returns."""
+    from gardenia_tpu_torch.mining import fsm_agg
+    from gardenia_tpu_torch.mining.fsm import fsm_solver
+    from gardenia_tpu_torch.mining.gspan import fsm_gspan
+    from gardenia_tpu_torch.utils.timer import time_op
+    dev = resolve_device(device)
+    if g is None:
+        g = get_graph(scale)
+    before = dict(panel.LAUNCHES)
+    split_before = panel.SPLIT_LAUNCHES["split"]
+    total, secs = time_op(
+        lambda: fsm_solver(g, FSM_K, FSM_MINSUP, device=dev), warmup=1,
+        iters=1, device=dev)
+    k1 = {r: n - before[r] for r, n in panel.LAUNCHES.items()}
+    split = panel.SPLIT_LAUNCHES["split"] - split_before
+    if scale in FSM2_MINSUP5000_RECORD:
+        check = "record"
+        correct = total == FSM2_MINSUP5000_RECORD[scale]
+    else:
+        check = "gspan"
+        correct = total == fsm_gspan(g, FSM_K, FSM_MINSUP, device=dev)
+    L = fsm_agg.label_ids(g)[1]
+    meps = g.nnz / secs / 1e6
+    record = {"metric": f"fsm{FSM_K}_minsup{FSM_MINSUP}_meps_rmat{scale}",
+              "value": meps, "unit": "M edges/s",
+              "vs_baseline": meps / BASELINE_FSM_MEPS,
+              "detail": {"frequent_patterns": int(total), "k": FSM_K,
+                         "minsup": FSM_MINSUP, "ms": secs * 1e3, "labels": L,
+                         "lane_chunks": len(fsm_agg.lane_chunks(L)),
+                         "k1_launches": k1, "split_launches": split,
+                         "check": check, "correct": bool(correct),
+                         "nnz": g.nnz, "m": g.m, "device": device_name(dev)}}
+    return record, g, total
+
+
 KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
            "msbfs": bench_msbfs, "bc": bench_bc, "spmv": bench_spmv,
            "sssp": bench_sssp, "mst": bench_mst, "scc": bench_scc,
            "vc": bench_vc, "symgs": bench_symgs, "sgd": bench_sgd,
-           "kcl": bench_kcl, "motif": bench_motif}
+           "kcl": bench_kcl, "motif": bench_motif, "sgl": bench_sgl,
+           "fsm": bench_fsm}
 
 
 def main(argv=None):

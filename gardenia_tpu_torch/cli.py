@@ -1,6 +1,7 @@
 """Benchmark CLI of the port — the `pr`, `spmv`, `bfs`, `sssp`, `cc`, `bc`,
-`tc`, `scc`, `mst`, `vc`, `symgs`, `sgd`, `kcl` and `motif` kernels, with
-the positional argv of gardenia_tpu/cli.py:
+`tc`, `scc`, `mst`, `vc`, `symgs`, `sgd`, `kcl`, `motif`, `sgl` and `fsm`
+kernels (all 16 of the reference's), with the positional argv of
+gardenia_tpu/cli.py:
 
   python -m gardenia_tpu_torch.cli <kernel> <filetype> <graph-prefix|scale>
                                    [symmetrize] [kernel args...]
@@ -22,6 +23,8 @@ e.g.
   python -m gardenia_tpu_torch.cli sgd rmat 20 0 0 0.05 0.003 3
   python -m gardenia_tpu_torch.cli kcl rmat 20 1 4
   python -m gardenia_tpu_torch.cli motif rmat 16 1 4
+  python -m gardenia_tpu_torch.cli sgl rmat 16 1 diamond
+  python -m gardenia_tpu_torch.cli fsm rmat 16 5000 2
 
 Flags may stand anywhere among the positionals, as in the reference's CLI
 (`--device cpu` in two words is taken too); an unknown flag prints a
@@ -41,7 +44,9 @@ W'; vc: 'runtime [base] = X ms, num_colors = N.'; symgs: the runtime;
 sgd: 'Iteration i: RMSE error = E' per epoch, 'iterations = N.' and the
 runtime; kcl: the runtime, 'total_num_cliques = N' and the route with
 Q1's launches; motif: the runtime, '<pattern>: N' a line and, at k = 4,
-which aggregates ran) and the serial oracle's 'Correct'/'Wrong' (vc: a proper
+which aggregates ran; sgl: the runtime and 'total_num_<pattern> = N';
+fsm: 'minsup = ', 'k = ', the runtime and 'Number of frequent subgraphs
+(minsup=S): N') and the serial oracle's 'Correct'/'Wrong' (vc: a proper
 colouring; symgs: l2 error < 1e-4 against the serial sweep, a
 pure-Python loop that takes minutes at R-MAT-20; sgd: a finite RMSE
 trace, non-increasing within 0.1% an epoch, that ends below where it
@@ -50,7 +55,10 @@ began).  bfs takes [symmetrize]
 8-19); sssp takes [symmetrize] [reverse] [source] [delta]; sgd [symmetrize] [-]
 [lambda] [step] [max_iters]; kcl and motif [symmetrize] [k] (kcl: no
 check past 5000 vertices at k > 3, motif: none past 80 vertices, as in
-the reference's CLI).  `main` returns 1 on 'Wrong'.
+the reference's CLI); sgl [symmetrize] [pattern] (diamond, rectangle,
+pentagon or house; no check past 40 vertices); fsm <minsup> <k> after the
+graph, which it always symmetrizes (no check past 5000 vertices).
+`main` returns 1 on 'Wrong'.
 """
 
 from __future__ import annotations
@@ -371,11 +379,54 @@ def run_motif(args, device, variant="formula") -> bool:
     return True
 
 
+def run_sgl(args, device, variant="base") -> bool:
+    """sgl <filetype> <graph> [symmetrize] [pattern] (mining/sgl/main.cc):
+    symmetrizes by default, diamond by default; checked against the
+    brute-force listing when |V| <= 40."""
+    if variant != "base":
+        raise ValueError(f"unknown sgl variant {variant!r} (only 'base')")
+    print("Subgraph Listing by gardenia_tpu_torch")
+    g, rest = _load(args, symmetrize_default=True)
+    pattern = rest[0] if rest else "diamond"
+    from gardenia_tpu_torch.mining import sgl
+    total, secs = time_op(lambda: sgl.sgl_solver(g, pattern, device=device),
+                          device=device)
+    report_runtime(variant, secs)
+    print(f"total_num_{pattern} = {total}")
+    if g.m <= 40:
+        return check(total == sgl.sgl_verifier(g, pattern))
+    print("(verification skipped: graph too large for brute force)")
+    return True
+
+
+def run_fsm(args, device, variant="base") -> bool:
+    """fsm <filetype> <graph> <minsup> <k> (mining/fsm/main.cc:9-11):
+    always symmetrized, minsup 2 and k 2 by default; checked against the
+    brute-force miner when |V| <= 5000."""
+    if variant != "base":
+        raise ValueError(f"unknown fsm variant {variant!r} (only 'base')")
+    print("Frequent Subgraph Mining by gardenia_tpu_torch")
+    g, _ = _load(args[:2] + ["1"], symmetrize_default=True)
+    minsup = int(args[2]) if len(args) > 2 else 2
+    k = int(args[3]) if len(args) > 3 else 2
+    print(f"minsup = {minsup}")
+    print(f"k = {k}")
+    from gardenia_tpu_torch.mining.fsm import fsm_solver, fsm_verifier
+    total, secs = time_op(lambda: fsm_solver(g, k, minsup, device=device),
+                          device=device)
+    report_runtime(variant, secs)
+    print(f"Number of frequent subgraphs (minsup={minsup}): {total}")
+    if g.m <= 5000:
+        return check(total == fsm_verifier(g, k, minsup))
+    print("(verification skipped: graph too large for brute force)")
+    return True
+
+
 KERNELS = {"pr": run_pr, "spmv": run_spmv, "bfs": run_bfs,
            "sssp": run_sssp, "cc": run_cc, "bc": run_bc, "tc": run_tc,
            "scc": run_scc, "mst": run_mst, "vc": run_vc,
            "symgs": run_symgs, "sgd": run_sgd, "kcl": run_kcl,
-           "motif": run_motif}
+           "motif": run_motif, "sgl": run_sgl, "fsm": run_fsm}
 
 
 def main(argv=None) -> int:

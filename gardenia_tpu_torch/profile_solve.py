@@ -2,7 +2,7 @@
 
     python -m gardenia_tpu_torch.profile_solve
         [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,scc,mst,vc,symgs,sgd,
-                   kcl,motif}]
+                   kcl,motif,sgl,fsm}]
         [--graph {rmat,uniform}] [--scale 20] [--solves 3]
         [--trace chiprun_out/trace.json]
 
@@ -17,7 +17,8 @@ bfs_do_fused from the vertex of highest degree; msbfs and bc: sources
 0.2; sssp: nearfar from vertex 0 with delta 1024; scc: 'color'; symgs:
 the bench's inputs and colouring; sgd: 10 epochs at step 0.1 from the
 bench's latent tables; kcl: kcl_solver at k = 4 through Q1; motif: the
-4-motif census): one
+4-motif census; sgl: sgl_solver's diamond formula; fsm: fsm_solver at
+k = 2, minsup 5000, on the degree-bucket labels): one
 untraced solve that
 builds and uploads (layout or TC prep), then `--solves` untraced solves
 timed on the host clock after cuda.synchronize, then `--solves` solves
@@ -100,6 +101,13 @@ def solver(kernel: str, g):
     if kernel == "motif":
         from gardenia_tpu_torch.mining.motif import motif_solver
         return partial(motif_solver, k=4)
+    if kernel == "sgl":
+        from gardenia_tpu_torch.mining.sgl import sgl_solver
+        return partial(sgl_solver, pattern="diamond")
+    if kernel == "fsm":
+        from gardenia_tpu_torch.bench import FSM_K, FSM_MINSUP
+        from gardenia_tpu_torch.mining.fsm import fsm_solver
+        return partial(fsm_solver, k=FSM_K, minsup=FSM_MINSUP)
     from gardenia_tpu_torch.solvers.tc import tc_solver
     return tc_solver
 
@@ -127,7 +135,7 @@ def main(argv=None):
     ap.add_argument("--kernel", default="tc",
                     choices=["pr", "tc", "cc", "bfs", "msbfs", "bc", "spmv",
                              "sssp", "scc", "mst", "vc", "symgs", "sgd",
-                             "kcl", "motif"])
+                             "kcl", "motif", "sgl", "fsm"])
     ap.add_argument("--graph", default="rmat", choices=["rmat", "uniform"])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--solves", type=int, default=3)

@@ -47,7 +47,10 @@ assert {"gardenia_tpu_torch.cli", "gardenia_tpu_torch.solvers.cc",
         "gardenia_tpu_torch.utils.checkpoint",
         "gardenia_tpu_torch.mining.kcl", "gardenia_tpu_torch.mining.motif",
         "gardenia_tpu_torch.mining.wedgestream",
-        "gardenia_tpu_torch.ops.kcl_count",
+        "gardenia_tpu_torch.mining.pattern", "gardenia_tpu_torch.mining.sgl",
+        "gardenia_tpu_torch.mining.dfscode", "gardenia_tpu_torch.mining.labels",
+        "gardenia_tpu_torch.mining.gspan", "gardenia_tpu_torch.mining.fsm_agg",
+        "gardenia_tpu_torch.mining.fsm", "gardenia_tpu_torch.ops.kcl_count",
         "gardenia_tpu_torch.core.graph", "gardenia_tpu_torch.native",
         "gardenia_tpu_torch.verify.oracles"} <= set(names), names
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
@@ -492,3 +495,81 @@ def test_bench_kcl_motif_cpu_print_one_json_line(kernel, metric, unit):
         assert d["aggregates"] == "streams" and d["check"] == "solvers"
         assert d["kcl_route"] == "q1_plain" and d["q1_launches"] == 0
         assert d["n_parts"] == d["n_qparts"] == 1
+
+
+# --- sgl, fsm -------------------------------------------------------------
+
+@pytest.mark.parametrize("words,title,want", [
+    (("sgl", "rmat", "5", "1", "diamond"), "Subgraph Listing",
+     ("total_num_diamond = 1525",)),
+    (("sgl", "rmat", "5", "1", "house"), "Subgraph Listing",
+     ("total_num_house = 683",)),
+    (("fsm", "rmat", "8", "2", "2"), "Frequent Subgraph Mining",
+     ("minsup = 2", "k = 2", "Number of frequent subgraphs (minsup=2): 91"))])
+def test_cli_sgl_fsm_contract_lines(words, title, want):
+    """sgl and fsm print the reference's lines (gardenia_tpu/cli.py:
+    290-318) and end Correct on the CPU: sgl against the brute-force
+    listing, fsm against the brute-force miner; the counts are the JAX
+    package's."""
+    from gardenia_tpu.core.generate import generate_graph
+    from gardenia_tpu.mining.fsm import fsm_solver
+    from gardenia_tpu.mining.sgl import sgl_solver
+    proc, lines = _cli(*words, "--device=cpu")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert lines[0] == f"{title} by gardenia_tpu_torch"
+    assert lines[1].startswith(f"|V| {1 << int(words[2])} |E| ")
+    assert any(ln.startswith("\truntime [base] = ") for ln in lines)
+    for line in want:
+        assert line in lines
+    g = generate_graph("rmat", scale=int(words[2]), symmetrize=True)
+    if words[0] == "sgl":
+        assert want[0].endswith(f" = {sgl_solver(g, words[4])}")
+    else:
+        assert want[-1].endswith(f": {fsm_solver(g, 2, 2)}")
+    assert lines[-1] == "Correct"
+
+
+def test_cli_and_bench_list_every_kernel_of_the_reference():
+    """All 16 of the reference CLI's kernels and all 17 of its bench's
+    entries (gardenia_tpu/cli.py:321-338, bench.py:569-575)."""
+    from gardenia_tpu_torch import bench, cli
+    assert len(cli.KERNELS) == 16 and len(bench.KERNELS) == 17
+    proc, lines = _cli()
+    assert proc.returncode == 1
+    assert lines[-1] == "kernels: " + " ".join(sorted(cli.KERNELS))
+
+
+@pytest.mark.parametrize("kernel,metric,unit", [
+    ("sgl", "sgl_diamond_meps_rmat10", "M edges/s"),
+    ("fsm", "fsm2_minsup5000_meps_rmat10", "M edges/s")])
+def test_bench_sgl_fsm_cpu_print_one_json_line(kernel, metric, unit):
+    """One JSON line with the reference's metric name and formula
+    (bench.py:525-566) and the check that holds the answer."""
+    proc = _run(["-m", "gardenia_tpu_torch.bench", "--kernel", kernel,
+                 "--scale", "10", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    d = rec["detail"]
+    assert rec["metric"] == metric and rec["unit"] == unit
+    assert d["device"] == "cpu" and d["m"] == 1024 and d["correct"] is True
+    assert abs(rec["value"] - d["nnz"] / d["ms"] / 1e3) < 1e-9 * rec["value"]
+    if kernel == "sgl":
+        assert d["count"] == 2706606 and d["check"] == "engine"
+        assert rec["vs_baseline"] == rec["value"] / 100.0
+        assert d["route"] == "streams" and d["kcl_route"] == "q1_plain"
+        assert d["q1_launches"] == 0
+    else:
+        assert rec["vs_baseline"] == rec["value"] / 5.0
+        assert d["frequent_patterns"] == 0 and d["check"] == "gspan"
+        assert d["labels"] == 11 and d["lane_chunks"] == 1
+        assert d["k1_launches"] == {"simt": 0, "tc": 0}
+        assert d["split_launches"] == 0
+        # no pattern reaches minsup 5000 here: at minsup 30 the bench's
+        # aggregate path and its gSpan check have patterns to agree on
+        from gardenia_tpu_torch import bench
+        from gardenia_tpu_torch.mining import fsm, gspan
+        g = bench.get_graph(10)
+        assert fsm.fsm_solver(g, 2, 30, device="cpu") == \
+            gspan.fsm_gspan(g, 2, 30, device="cpu") == 47
