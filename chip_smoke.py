@@ -163,8 +163,8 @@ result:
      512/513 (the hubs' run), 1024 and 1025, which must take the
      expansion; one hub of out-degree 1024 alone in the CTA shape;
      out-neighbours that all share the table's last slot, at d = 60 and
-     500, with ids in their rows that pass the filter and miss) and on
-     R-MAT-16; kcl_solver at
+     500, with ids in their rows that pass the filter and miss), on
+     R-MAT-16 at k = 3 and 4 and on R-MAT-14 at k = 5; kcl_solver at
      R-MAT-16 against the TPU record (291,554,165); the main path: the
      port's bench (--kernel kcl) at R-MAT-20, Q1's launches set to 0
      before and read after (the launch plan's runs x solves), its count
@@ -201,9 +201,32 @@ result:
      route (ops/spmv.spmv_batched over the CSR, which launches no K1);
      K1 on the bench's bf16 0/1 operands (S = L = 11, S = L * L = 121)
      against its plain version, exactly, and timed by CUDA events beside
-     it and its bound; fsm_solver at k = 2 and 3 (gSpan) at R-MAT-9 with
-     16 seeded random labels, minsup 16, on the card against CPU tensors.
-     Phases 21 and 22 print the peak device memory.
+     it, its bound and the library yardstick (torch.sparse_bsr_tensor with
+     f32 values @ the operand, beside K1 + the slot index_add_); fsm_solver
+     at k = 2 and 3 (gSpan) at R-MAT-9 with 16 seeded random labels, minsup
+     16, on the card against CPU tensors.  Phases 21 and 22 print the peak
+     device memory.
+  23. the multi-device path (gardenia_tpu_torch/parallel, one process a
+     rank started by parallel.mesh.run_on_ranks): pr_solver_dist on one
+     rank (nccl) at R-MAT-20, hybrid layout, against the single-device
+     pr_solver (scores within 1e-6 and 1e-5 of the largest, the same
+     iterations, the residual),
+     K1's launches on the rank = iterations x its shard's panel arrays;
+     two ranks on the one card (gloo with CUDA tensors): PR at R-MAT-20 as
+     above, each rank's K1 launches = iterations x its arrays; at R-MAT-16
+     BFS (hybrid and ell) from the vertex of highest degree against the
+     serial BFS, MS-BFS-dp with 128 sources (64 a rank, K1's tensor-core
+     kernel on each) against the numpy bitset BFS, TC against tc_solver,
+     VC proper, SCC (directed) a bijection of scipy's strong components;
+     each with its solve ms (the second solve; the first builds the
+     shard), its collectives' calls, bytes and ms an iteration (replayed
+     alone), the backend; then the CLI's pr rmat 16 --dist=2 (Correct),
+     entry()'s step on the card against CPU tensors, dryrun_multichip(2)
+     and the bench's --quick (one JSON line at scale 16).  On each rank
+     of the hybrid PR, BFS and MS-BFS cases, K1's calls of the first
+     solve are held to its plain version on the same shard arrays and
+     operand, and the PR and BFS shard's whole apply to scipy's product
+     of the graph's rows.  K1's launches_by_path gains the dist paths.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -233,6 +256,11 @@ K1_REL_LIMIT = 1e-5
 # and its products are summed in the tensor core's accumulator, which
 # truncates (measured up to 9e-6 on the densest bf16-panel rows)
 K1_BF16_REL_LIMIT = 1e-4
+# a rank's whole hybrid shard applied on the card against scipy's f64
+# product, max|diff| / max|y|; and the dist PR's scores against the
+# single-device solver's, max|diff| / max|score| (beside 1e-6 absolute)
+SHARD_REL_LIMIT = 1e-5
+DIST_PR_REL_LIMIT = 1e-5
 BATCH_SMOKE_SOURCES = 16    # multi-source BFS and BC at R-MAT-16
 # the R-MAT-20 MS-BFS's 128 columns are held to a numpy bitset BFS
 # (bfs_depths_bits, ~0.1 s a column), and its first columns also to
@@ -277,6 +305,11 @@ V1_REPEATS = 20             # launches on one core that must all agree
 # Pallas kernel)
 Q1_SOURCE = "gardenia_tpu_torch/csrc/kcl_local_count.cu"
 Q1_REPLACES = "gardenia_tpu/mining/kcl.py:175"
+# Q1 against its plain version at k = 5: R-MAT-14 launches the CTA shape
+# (out-degrees 65..145) and the warp shape, the two runs R-MAT-16 launched
+# (its widest out-degree is 254, under HUB_DEGREE); the hubs' run at k = 5
+# is held by the hand cases (K_{513,513}, K_{1024,1024}, the lone hub)
+KCL_K5_SCALE = 14
 TRI_CHUNK = 1 << 23         # edge_triangle_counts' step on the card, wedges
 # (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
 # default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
@@ -1772,7 +1805,7 @@ def q1_ops(ldag, k: int, lower_counts: dict) -> int:
 def kcl_phase(dev, gpu: str, g, g16):
     """Phase 19: Q1's sizes as the library exports them against the host's
     copies; Q1 against its plain version per vertex (hand cases, R-MAT-16
-    at k = 3, 4, 5), kcl_solver at R-MAT-16 against the TPU record, the
+    at k = 3, 4, R-MAT-14 at k = 5), kcl_solver at R-MAT-16 against the TPU record, the
     R-MAT-20 kcl bench (the main path) with Q1's launches, Q1 timed beside
     its plain version and its bound, by degree class with the probe's
     split (scripts/probe_q1.py), and k = 3 through Q1 against tc_solver.
@@ -1846,8 +1879,17 @@ def kcl_phase(dev, gpu: str, g, g16):
         for k in ks:
             hold(label, src, k, want)
     counts16, plain16_ms = {}, {}
-    for k in (3, 4, 5):
+    for k in (3, 4):
         counts16[k], _, plain16_ms[k] = hold(f"rmat{SMOKE_SCALE}", g16, k)
+    # k = 5 is off the main path (k = 4): held at R-MAT-14, where R-MAT-16's
+    # plain expansion took 12.5 s of the run; it must launch both shapes
+    from gardenia_tpu_torch.core.generate import generate_graph
+    _, plan5, _ = hold(f"rmat{KCL_K5_SCALE}", generate_graph(
+        "rmat", scale=KCL_K5_SCALE, degree=16, symmetrize=True), 5)
+    if not (plan5 and plan5[0][2] > kcl_count.WARP_DEGREE
+            and plan5[-1][2] <= kcl_count.WARP_DEGREE):
+        fail(f"Q1 at k = 5 on rmat{KCL_K5_SCALE} did not launch both the CTA "
+             f"and the warp shape: plan {plan5}")
     total16 = kcl.kcl_solver(g16, 4, device=dev)
     print(f"[19] kcl_solver rmat{SMOKE_SCALE} k 4: {total16} (the TPU "
           f"record: {bench.KCL4_RECORD[SMOKE_SCALE]}), route {kcl.LAST_ROUTE}")
@@ -2273,14 +2315,22 @@ def fsm_phase(dev, gpu: str, g, g16) -> dict:
         b_ms, b_by = bound(panel_bytes + qx * 128 * S * 2
                            + slots * 128 * S * 4, 2 * nz * S,
                            TENSOR_BF16_OPS_PER_S)
+        # the library's yardstick on the same operand, f32 values as at
+        # S = 128 ([11]), beside K1 + the slot index_add_
+        lib = library_yardstick(hyb, x3, qx, torch.float32,
+                                dense_part(hyb, x3, qx), K1_REL_LIMIT)
+        dense_ms = cuda_ms(lambda: dense_part(hyb, x3, qx), reps=3, warmup=1)
         out["by_columns"][S] = {"ms": ms_["kernel"], "plain_ms": ms_["plain"],
                   "bound_ms": b_ms, "bound_by": b_by,
-                  "padded_columns": panel.padded_columns(S)}
+                  "padded_columns": panel.padded_columns(S),
+                  "dense_with_index_add_ms": dense_ms, **lib}
         print(f"[22] K1 'tc' on the fsm operand S = {S} (padded to "
               f"{panel.padded_columns(S)}): {bad} elements differ from the "
               f"plain version; kernel {ms_['kernel']:.3f} ms, plain "
               f"{ms_['plain']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms_['kernel']:.2f} of it; gpu: {gpu}")
+              f"{b_ms / ms_['kernel']:.2f} of it; library yardstick "
+              f"(torch.sparse_bsr_tensor f32 @ operand) {json.dumps(lib)}, "
+              f"K1 + the slot index_add_ {dense_ms:.3f} ms; gpu: {gpu}")
         torch.cuda.empty_cache()
     if out["mismatches"]:
         fail("K1 differs from its plain version on the fsm operands")
@@ -2309,6 +2359,383 @@ def fsm_phase(dev, gpu: str, g, g16) -> dict:
         fail("gSpan's level 3 found no frequent pattern")
     out["launches"] = routes["tc"]
     return out
+
+
+def replay_collectives(mesh, calls: dict, nbytes: dict, reps: int = 3
+                       ) -> float:
+    """ms of a solve's collectives replayed alone: as many all_gathers and
+    all_reduces as it made, each of int32 elements of its mean size,
+    host clock between synchronizes, the mean of reps."""
+    import torch
+    n_ag, n_ar = calls["all_gather"], calls["all_reduce"]
+    ag = torch.zeros(max(1, nbytes["all_gather"] // max(1, n_ag)
+                         // mesh.size // 4), dtype=torch.int32,
+                     device=mesh.device)
+    ar = torch.zeros(max(1, nbytes["all_reduce"] // max(1, n_ar) // 4),
+                     dtype=torch.int32, device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for _ in range(n_ag):
+            mesh.all_gather(ag)
+        for _ in range(n_ar):
+            mesh.all_reduce(ar)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def record_k1(run):
+    """(run()'s result, K1's calls in the run under the operand they read
+    that had the most nonzeros: {"x3d": a copy of it, "S", "nonzeros",
+    "calls": [(panel, src, out)]}, or None when K1 was not called).  Every
+    K1 call goes through ops/panel.dense_panel_matmul_arrays, which is
+    wrapped for the run."""
+    import torch
+    from gardenia_tpu_torch.ops import panel
+    keep, groups = panel.dense_panel_matmul_arrays, []
+
+    def rec(arrays, x3d, S):
+        arrays = list(arrays)
+        outs = keep(arrays, x3d, S)
+        if not groups or groups[-1]["of"] is not x3d:
+            # a new operand: of the ones before it, keep the densest
+            groups[:] = [max(groups, key=lambda c: c["nonzeros"])] \
+                if groups else []
+            groups.append({"of": x3d, "x3d": x3d.clone(), "S": S,
+                           "nonzeros": int(torch.count_nonzero(x3d)),
+                           "calls": []})
+        groups[-1]["calls"] += [(pn, src, y)
+                                for (pn, src), y in zip(arrays, outs)]
+        return outs
+
+    panel.dense_panel_matmul_arrays = rec
+    try:
+        res = run()
+    finally:
+        panel.dense_panel_matmul_arrays = keep
+    if not groups:
+        return res, None
+    best = max(groups, key=lambda c: c["nonzeros"])
+    del best["of"]
+    return res, best
+
+
+def hold_k1_calls(rec: dict) -> dict:
+    """K1's outputs recorded on a rank's path against its plain version
+    (ops/panel.dense_panel_matmul_plain) on the same panel array, block
+    table and operand, on the card: exact for a 0/1 bf16 operand on
+    integer panels (every sum an integer), else max|diff| / max|y| under
+    K1_REL_LIMIT; every block id of the table inside the operand."""
+    import torch
+    from gardenia_tpu_torch.ops import panel
+    x, S = rec["x3d"], rec["S"]
+    binary = x.dtype == torch.bfloat16 and bool(((x == 0) | (x == 1)).all())
+    st = {"arrays": 0, "S": S, "operand": str(x.dtype)[6:],
+          "operand_nonzeros": rec["nonzeros"], "max_abs_err": 0.0,
+          "max_rel_err": 0.0, "mismatches": 0}
+    for pn, src, y_k in rec["calls"]:
+        y_p = panel.dense_panel_matmul_plain(pn, src, x, S)
+        in_range = not src.numel() or (int(src.min()) >= 0 and
+                                       int(src.max()) < x.shape[0])
+        if y_k.shape != y_p.shape or not in_range:
+            st["mismatches"] += 1
+            continue
+        err = float((y_k - y_p).abs().max()) if y_p.numel() else 0.0
+        rel = err / max(1e-30, float(y_p.abs().max())) if y_p.numel() \
+            else 0.0
+        exact = binary and pn.dtype != torch.float32
+        st["arrays"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        st["mismatches"] += int(err != 0 if exact else
+                                not (np.isfinite(rel) and rel < K1_REL_LIMIT))
+        del y_p
+    return st
+
+
+def hold_shard_apply(gr, sh, x3d) -> dict:
+    """A rank's whole shard (rows padded to rows_per_shard, columns the
+    global padded vertex space) applied by spmv_hybrid on the card, K1 on
+    its panels plus the ELL remainder, to the all-gathered padded operand
+    that K1 read; against scipy's f64 product of the graph's in-edge rows
+    [lo, hi) with the same operand in global order, element by element.
+    Rows past hi - lo must come out 0."""
+    import scipy.sparse as sp
+    from gardenia_tpu_torch.ops.bsr import spmv_hybrid
+    r = sh.ranges
+    x = x3d.reshape(-1)[:r.padded_size()].float().contiguous()
+    y = spmv_hybrid(sh.mat, x, num_rows=r.rows_per_shard).cpu().numpy()
+    a = sp.csr_matrix((np.ones(len(gr.in_colidx)), gr.in_colidx,
+                       gr.in_rowptr), shape=(gr.m, gr.m))
+    want = a[sh.lo:sh.hi] @ r.from_padded(x.cpu().numpy()).astype(np.float64)
+    n = sh.hi - sh.lo
+    err = float(np.abs(y[:n] - want).max()) if n else 0.0
+    rel = err / max(1e-30, float(np.abs(want).max())) if n else 0.0
+    pad = float(np.abs(y[n:]).max()) if len(y) > n else 0.0
+    return {"rows": n, "rows_per_shard": r.rows_per_shard,
+            "columns": r.padded_size(), "max_abs_err": err,
+            "max_rel_err": rel, "pad_rows_max": pad,
+            "ok": bool(y.shape == (r.rows_per_shard,) and pad == 0
+                       and np.isfinite(rel) and rel < SHARD_REL_LIMIT)}
+
+
+def dist_rank(mesh, graphs: dict, cases):
+    """Phase 23 on one rank: for each case (kernel, graph name, args,
+    kwargs), the dist solver of gardenia_tpu_torch.parallel on that graph,
+    twice: the first solve builds the rank's shard, with K1's calls
+    recorded; the second runs with K1's launch counts and the mesh's
+    collective counts set to 0 just before and read just after, timed by
+    the host clock between synchronizes; then its collectives replayed
+    alone, and K1's recorded calls held against the plain version
+    (hold_k1_calls) and, on the hybrid PR and BFS shards, the whole
+    shard's apply against scipy (hold_shard_apply).  A case's result comes
+    back from rank 0 (all ranks hold it)."""
+    import torch
+    from gardenia_tpu_torch import parallel
+    from gardenia_tpu_torch.ops import panel
+    solvers = {"pr": parallel.pr_solver_dist, "bfs": parallel.bfs_solver_dist,
+               "msbfs": parallel.bfs_multi_source_dist,
+               "tc": parallel.tc_solver_dist, "vc": parallel.vc_solver_dist,
+               "scc": parallel.scc_solver_dist}
+    outs = []
+    for kernel, name, args, kwargs in cases:
+        g, solve = graphs[name], solvers[kernel]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, k1_rec = record_k1(lambda: solve(g, *args, mesh=mesh, **kwargs))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        panel.LAUNCHES.update(simt=0, tc=0)
+        mesh.calls = dict.fromkeys(mesh.calls, 0)
+        mesh.bytes = dict.fromkeys(mesh.bytes, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(g, *args, mesh=mesh, **kwargs)
+        torch.cuda.synchronize()
+        out = {"ms": (time.perf_counter() - t0) * 1e3, "first_s": first_s,
+               "launches": dict(panel.LAUNCHES), "calls": dict(mesh.calls),
+               "bytes": dict(mesh.bytes), "mesh": mesh.describe(),
+               "result": res if mesh.rank == 0 else None,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        out["replay_ms"] = replay_collectives(mesh, out["calls"],
+                                              out["bytes"])
+        if k1_rec is not None:
+            out["k1_hold"] = hold_k1_calls(k1_rec)
+        if kernel in ("pr", "bfs") and \
+                kwargs.get("layout", "hybrid") == "hybrid":
+            from gardenia_tpu_torch.core.relabel import relabeled
+            from gardenia_tpu_torch.parallel.pr import shard_of
+            gr = relabeled(g).graph
+            sh = shard_of(gr, mesh, "hybrid", "edges")
+            out["arrays"] = len(sh.mat.dense)
+            if k1_rec is not None:
+                out["shard_hold"] = hold_shard_apply(gr, sh, k1_rec["x3d"])
+        del k1_rec
+        outs.append(out)
+    return outs
+
+
+def dist_phase(dev, gpu: str, g, g16) -> tuple:
+    """Phase 23: the port's multi-device path on the card.  One rank
+    (nccl): pr_solver_dist on R-MAT-20 (hybrid layout, K1 on the rank's
+    shard) against the single-device pr_solver.  Two ranks on the one card
+    (gloo with CUDA tensors): PR at R-MAT-20; BFS (hybrid and ell) from
+    the vertex of highest degree, MS-BFS-dp with 128 sources, TC, VC and
+    SCC (directed) at R-MAT-16, each against its reference.  Then the CLI
+    (pr rmat 16 --dist=2), the entry twin and dryrun_multichip(2), and the
+    bench's --quick.  Returns K1's launches by dist path, and by path the
+    worst errors of K1's calls on the ranks' shards against the plain
+    version (and of the PR and BFS shards' whole apply against scipy)."""
+    import torch
+    import scipy.sparse.csgraph as csg
+    from gardenia_tpu_torch import bench
+    from gardenia_tpu_torch.cli import same_components
+    from gardenia_tpu_torch.core.graph import from_csr_of
+    from gardenia_tpu_torch.entry import dryrun_multichip, entry
+    from gardenia_tpu_torch.parallel import run_on_ranks
+    from gardenia_tpu_torch.solvers.pr import EPSILON, pr_solver
+    from gardenia_tpu_torch.solvers.tc import tc_solver
+    from gardenia_tpu_torch.utils.timer import time_op
+    from gardenia_tpu_torch.verify import oracles
+    t_phase = time.perf_counter()
+    single, single_s = time_op(lambda: pr_solver(g, device=dev), device=dev)
+    want = single.scores.cpu().numpy()
+    k1, holds = {}, {}
+
+    def report(label, ranks, per_iter, extra=""):
+        r0 = ranks[0]
+        iters = max(1, per_iter)
+        holds = [{k: r[k] for k in ("k1_hold", "shard_hold") if k in r}
+                 for r in ranks]
+        if any(holds):
+            extra += f"; holds by rank {json.dumps(holds)}"
+        print(f"[23] {label}: {r0['mesh']}; solve {r0['ms']:.3f} ms (first "
+              f"{r0['first_s']:.1f} s with the shard's build); collectives "
+              f"a rank {json.dumps(r0['calls'])}, "
+              f"{sum(r0['bytes'].values()) / iters / 1e6:.3f} MB and "
+              f"{r0['replay_ms'] / iters:.3f} ms replayed alone an "
+              f"iteration ({iters}); K1 launches by rank "
+              f"{json.dumps([r['launches'] for r in ranks])}; peak device "
+              f"memory {max(r['peak_gib'] for r in ranks):.2f} GiB; "
+              f"gpu: {gpu}" + extra)
+
+    def hold_ranks(label, ranks, shard):
+        """Fail unless every rank held K1's recorded calls to the plain
+        version (and, with shard, its whole shard's apply to scipy)."""
+        for r in ranks:
+            h = r.get("k1_hold")
+            if h is None or not h["arrays"] or h["mismatches"]:
+                fail(f"{label}: K1 on a rank's shard disagrees with its "
+                     f"plain version or was not held: {h}")
+            if shard and not r.get("shard_hold", {}).get("ok"):
+                fail(f"{label}: a rank's shard apply disagrees with scipy: "
+                     f"{r.get('shard_hold')}")
+        holds[label] = {k: max(r[h][k] for r in ranks if h in r)
+                        for h in ("k1_hold",)
+                        for k in ("max_abs_err", "max_rel_err")}
+        if shard:
+            holds[label]["shard_max_rel_err"] = max(
+                r["shard_hold"]["max_rel_err"] for r in ranks)
+
+    # ---- one rank (nccl) on R-MAT-20; two (gloo) on R-MAT-20 and 16 -----
+    src = int(np.argmax(g16.degrees))
+    sources = np.arange(bench.SOURCES)
+    gd16 = bench.get_graph_directed(SMOKE_SCALE)
+    cases = {f"pr dist2 rmat{MAIN_SCALE}": ("pr", "g", (), {}),
+             f"bfs hybrid dist2 rmat{SMOKE_SCALE} from {src}":
+             ("bfs", "g16", (src,), {}),
+             f"bfs ell dist2 rmat{SMOKE_SCALE} from {src}":
+             ("bfs", "g16", (src,), {"layout": "ell"}),
+             f"msbfs dist2 rmat{SMOKE_SCALE}, {len(sources)} sources":
+             ("msbfs", "g16", (sources,), {}),
+             f"tc dist2 rmat{SMOKE_SCALE}": ("tc", "g16", (), {}),
+             f"vc dist2 rmat{SMOKE_SCALE}": ("vc", "g16", (), {}),
+             f"scc dist2 rmat{SMOKE_SCALE}d": ("scc", "gd16", (), {})}
+    graphs = {"g": from_csr_of(g), "g16": from_csr_of(g16),
+              "gd16": from_csr_of(gd16)}
+    t0 = time.perf_counter()
+    one = run_on_ranks(dist_rank, 1, "cuda", {"g": graphs["g"]},
+                       [cases[f"pr dist2 rmat{MAIN_SCALE}"]])
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = run_on_ranks(dist_rank, 2, "cuda", graphs, list(cases.values()))
+    print(f"[23] runs: one rank {t_one:.1f} s, two ranks "
+          f"{time.perf_counter() - t0:.1f} s (spawn, the graphs to the ranks, "
+          f"each rank's relabelling and shards, two solves a case)")
+    got = {f"pr dist1 rmat{MAIN_SCALE}": [one[0][0]]}
+    got.update({label: [r[i] for r in two] for i, label in enumerate(cases)})
+
+    for n in (1, 2):
+        label = f"pr dist{n} rmat{MAIN_SCALE}"
+        ranks = got[label]
+        res = ranks[0]["result"]
+        scores = res.scores.numpy()
+        diff = float(np.abs(scores - want).max())
+        rel = diff / float(np.abs(want).max())
+        resid = oracles.pagerank_push_residual(g, scores)
+        report(label, ranks, res.iterations,
+               f"; {res.iterations} iterations (pr_solver {single.iterations}"
+               f"), max|diff| vs pr_solver {diff:.3e} (rel {rel:.3e}), "
+               f"residual {resid:.3e}; pr_solver's solve "
+               f"{single_s * 1e3:.3f} ms")
+        if res.iterations != single.iterations or not diff < 1e-6 or \
+                not rel < DIST_PR_REL_LIMIT or not resid < EPSILON:
+            fail(f"pr_solver_dist on {n} rank(s) disagrees with pr_solver")
+        hold_ranks(label, ranks, shard=True)
+        for r in ranks:
+            if r["launches"]["simt"] != res.iterations * r["arrays"] or \
+                    not r["launches"]["simt"]:
+                fail(f"K1 launches {r['launches']} on a rank of {label} != "
+                     f"{res.iterations} x {r['arrays']} arrays")
+        k1[label] = {"simt": sum(r["launches"]["simt"] for r in ranks)}
+
+    bfs_want = oracles.bfs_serial(g16, src)
+    for layout in ("hybrid", "ell"):
+        label = f"bfs {layout} dist2 rmat{SMOKE_SCALE} from {src}"
+        ranks = got[label]
+        res = ranks[0]["result"]
+        ok = bool((res.dist.numpy() == bfs_want).all())
+        report(label, ranks, res.iterations, f"; {res.iterations} levels, "
+               f"depths {'equal' if ok else 'NOT equal'} to "
+               f"oracles.bfs_serial")
+        if not ok:
+            fail(f"bfs_solver_dist ({layout}) disagrees with the oracle")
+        if layout == "hybrid":
+            if not all(r["launches"]["simt"] for r in ranks):
+                fail("a rank of bfs dist2 launched no K1")
+            hold_ranks(label, ranks, shard=True)
+            k1[f"bfs dist2 rmat{SMOKE_SCALE}"] = {
+                "simt": sum(r["launches"]["simt"] for r in ranks)}
+    label = f"msbfs dist2 rmat{SMOKE_SCALE}, {len(sources)} sources"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    bad = int((res.dist.numpy() != bfs_depths_bits(g16, sources))
+              .any(axis=0).sum())
+    report(label, ranks, 1, f"; {res.iterations} levels, {bad} of "
+           f"{len(sources)} columns differ from the numpy bitset BFS")
+    if bad or tuple(res.dist.shape) != (g16.m, len(sources)):
+        fail("bfs_multi_source_dist disagrees with the bitset BFS")
+    if not all(r["launches"]["tc"] for r in ranks):
+        fail("a rank of msbfs dist2 launched no K1 tensor-core kernel")
+    hold_ranks(label, ranks, shard=False)
+    k1[f"msbfs dist2 rmat{SMOKE_SCALE}"] = {
+        "tc": sum(r["launches"]["tc"] for r in ranks)}
+    label = f"tc dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    want_tc = tc_solver(g16, device=dev)
+    report(label, ranks, 1, f"; {ranks[0]['result']} triangles (tc_solver "
+           f"{want_tc})")
+    if ranks[0]["result"] != want_tc:
+        fail("tc_solver_dist disagrees with tc_solver")
+    label = f"vc dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    ok = oracles.vc_check(g16, res.colors.numpy())
+    report(label, ranks, res.iterations, f"; {res.num_colors} colours in "
+           f"{res.iterations} rounds: {'proper' if ok else 'NOT proper'}")
+    if not ok:
+        fail("vc_solver_dist's colouring is not proper")
+    label = f"scc dist2 rmat{SMOKE_SCALE}d"
+    ranks = got[label]
+    root = ranks[0]["result"].scc_root.numpy()
+    _, want_scc = csg.connected_components(scipy_csr(gd16), directed=True,
+                                           connection="strong")
+    ok = same_components(root, want_scc)
+    report(label, ranks, ranks[0]["result"].iterations,
+           f"; {len(np.unique(root))} SCCs, scipy's {want_scc.max() + 1}: "
+           f"{'a bijection' if ok else 'NOT a bijection'}")
+    if not ok:
+        fail("scc_solver_dist disagrees with scipy's strong components")
+
+    # ---- the CLI, the entry twin, dryrun_multichip, bench --quick --------
+    for cmd in (["-m", "gardenia_tpu_torch.cli", "pr", "rmat",
+                 str(SMOKE_SCALE), "--dist=2"],
+                ["-m", "gardenia_tpu_torch.bench", "--quick"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        print(f"[23] {' '.join(cmd[1:])} ({time.perf_counter() - t0:.1f} s):"
+              f" " + " | ".join(ln.strip() for ln in lines[-4:]))
+        if proc.returncode != 0 or not lines:
+            fail(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr}")
+        if cmd[1].endswith("cli") and lines[-1] != "Correct":
+            fail("the CLI's pr --dist=2 did not end Correct")
+    if not lines[-1].startswith("{") or json.loads(lines[-1])["metric"] != \
+            f"pr_pull_gteps_rmat{SMOKE_SCALE}":
+        fail("bench --quick printed no JSON line of scale 16")
+    step, (x0,) = entry(device="cuda")
+    step_c, (x0_c,) = entry(device="cpu")
+    diff = float((step(x0).cpu() - step_c(x0_c)).abs().max())
+    print(f"[23] entry(): pr_step on the card vs on CPU tensors (the plain "
+          f"K1): max|diff| {diff:.3e}")
+    if not diff < 1e-6:
+        fail("entry()'s step on the card differs from the plain one")
+    t0 = time.perf_counter()
+    dryrun_multichip(2)                      # prints its OK line or raises
+    print(f"[23] dryrun_multichip(2): {time.perf_counter() - t0:.1f} s")
+    print(f"[23] phase time {time.perf_counter() - t_phase:.1f} s")
+    return k1, holds
 
 
 def main() -> None:
@@ -3220,15 +3647,26 @@ def main() -> None:
     clock(22)
     fsm22 = fsm_phase(dev, gpu, g, g16)
 
+    # ---- 23. the multi-device path: dist solvers on 1 and 2 ranks --------
+    clock(23)
+    dist23, dist_holds = dist_phase(dev, gpu, g, g16)
+    dist_simt = {p: c["simt"] for p, c in dist23.items() if "simt" in c}
+    dist_tc = {p: c["tc"] for p, c in dist23.items() if "tc" in c}
+
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches + bfs_routes["simt"] + spmv13["launches"],
+        "launches": launches + bfs_routes["simt"] + spmv13["launches"]
+        + sum(dist_simt.values()),
         "launches_by_path": {f"pr bench rmat{MAIN_SCALE}": launches,
                              f"bfs bench rmat{MAIN_SCALE}":
                              bfs_routes["simt"],
                              f"spmv bench rmat{MAIN_SCALE}":
-                             spmv13["launches"]},
+                             spmv13["launches"], **dist_simt},
+        # K1 on each rank's shard against its plain version, and the
+        # shard's apply against scipy, by dist path
+        "dist_holds": {p: h for p, h in dist_holds.items()
+                       if not p.startswith("msbfs")},
         "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
         "plain_ms": ms["dense_plain"],
@@ -3240,11 +3678,14 @@ def main() -> None:
         # operand's (BC's sweep); the bf16 operand's (MS-BFS's) beside them
         "name": "dense_panel_matmul_tc", "route": "cuda",
         "source": K1_TC_SOURCE, "replaces": K1_REPLACES, "columns": SOURCES,
-        "launches": ms_routes["tc"] + bc_routes["tc"] + fsm22["launches"],
+        "launches": ms_routes["tc"] + bc_routes["tc"] + fsm22["launches"]
+        + sum(dist_tc.values()),
         "launches_by_path": {f"msbfs bench rmat{MAIN_SCALE}": ms_routes["tc"],
                              f"bc bench rmat{MAIN_SCALE}": bc_routes["tc"],
                              f"fsm bench rmat{MAIN_SCALE}":
-                             fsm22["launches"]},
+                             fsm22["launches"], **dist_tc},
+        "dist_holds": {p: h for p, h in dist_holds.items()
+                       if p.startswith("msbfs")},
         "mismatches": kb_stats["mismatches"] + fsm22["mismatches"],
         "max_abs_err": kb_stats["max_abs_err"],
         "ms": kb_ms["f32"]["kernel"], "plain_ms": kb_ms["f32"]["plain"],
@@ -3302,7 +3743,7 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     entries.append(v1_entry)
     entries.append(q1_entry)
-    print(f"[22] the whole run: {time.perf_counter() - RUN_START:.1f} s")
+    print(f"[23] the whole run: {time.perf_counter() - RUN_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,6 +108,7 @@ Run: python -m gardenia_tpu_torch.bench
          [--kernel {pr,tc,cc,bfs,msbfs,bc,spmv,sssp,mst,scc,vc,symgs,sgd,
                     kcl,motif,sgl,fsm}]
                                         [--scale 20] [--device cuda]
+                                        [--quick]   (scale 16)
 """
 
 from __future__ import annotations
@@ -698,12 +699,22 @@ KERNELS = {"pr": bench_pr, "tc": bench_tc, "cc": bench_cc, "bfs": bench_bfs,
            "fsm": bench_fsm}
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The bench's flags; --quick sets the scale to 16 (bench.py:582-585)."""
     ap = argparse.ArgumentParser(prog="python -m gardenia_tpu_torch.bench")
     ap.add_argument("--kernel", default="pr", choices=sorted(KERNELS))
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--quick", action="store_true",
+                    help="scale 16 for smoke runs")
     args = ap.parse_args(argv)
+    if args.quick:
+        args.scale = 16
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     t0 = time.time()
     record, _, _ = KERNELS[args.kernel](args.scale, args.device)
     record["detail"]["total_s"] = time.time() - t0

@@ -29,8 +29,14 @@ e.g.
 Flags may stand anywhere among the positionals, as in the reference's CLI
 (`--device cpu` in two words is taken too); an unknown flag prints a
 message and returns 1.  The device is cuda unless asked otherwise.
-`--dist=` (the reference's multichip runs) is refused: the port has no
-multi-device solvers yet.
+`--dist=n` runs pr, bfs, tc, vc or scc on n ranks (parallel/, one process
+a rank, started by parallel.mesh.run_on_ranks), as gardenia_tpu/cli.py
+does over an n-device mesh: it prints 'mesh: n ranks (<backend>,
+<devices>)' and 'runtime [<kernel>_dist<n>] = X ms.' and checks against
+the same oracles; any other kernel prints that it has no multi-device
+path yet and returns 1, and --variant is ignored there.
+  python -m gardenia_tpu_torch.cli pr rmat 20 --dist=2
+  python -m gardenia_tpu_torch.cli bfs rmat 10 1 0 5 --dist=2 --device=cpu
 
 Each kernel prints the reference's contract lines: '|V| <m> |E| <nnz>',
 the kernel's own lines (pr: the error trace, 'runtime [<variant>] = X
@@ -422,6 +428,41 @@ def run_fsm(args, device, variant="base") -> bool:
     return True
 
 
+def run_dist(kernel, n, args, device) -> int:
+    """<kernel> --dist=n (gardenia_tpu/cli.py:341-383): pr, bfs, tc, vc
+    and scc on n ranks, each checked as its single-device run is."""
+    from gardenia_tpu_torch import parallel
+    g, rest = _load(args, symmetrize_default=kernel in ("vc", "tc"),
+                    need_reverse=kernel in ("pr", "bfs"))
+    source = int(rest[1]) if kernel == "bfs" and len(rest) > 1 else 0
+    solver = getattr(parallel, f"{kernel}_solver_dist")
+    call = (solver, (g, source) if kernel == "bfs" else (g,), {})
+    (res, secs), = parallel.run_on_ranks(parallel.time_each, n, str(device),
+                                         [call])[0]
+    print(f"mesh: {parallel.describe(n, device)}")
+    report_runtime(f"{kernel}_dist{n}", secs)
+    if kernel == "pr":
+        resid = oracles.pagerank_push_residual(g, res.scores.numpy())
+        ok = check(resid < 1e-4, f"(residual {resid})")
+    elif kernel == "bfs":
+        ok = check(bool((res.dist.numpy() ==
+                         oracles.bfs_serial(g, source)).all()))
+    elif kernel == "tc":
+        print(f"total_num_triangles = {res}")
+        expect = oracles.tc_serial(g.oriented())
+        ok = check(res == expect, f"(expected {expect})")
+    elif kernel == "vc":
+        print(f"num_colors = {res.num_colors}")
+        ok = check(oracles.vc_check(g, res.colors.numpy()))
+    else:
+        root = res.scc_root.numpy()
+        print(f"number of SCCs = {len(np.unique(root))}")
+        ok = check(same_components(root, oracles.scc_serial(g)))
+    return 0 if ok else 1
+
+
+DIST_KERNELS = ("pr", "bfs", "tc", "vc", "scc")
+
 KERNELS = {"pr": run_pr, "spmv": run_spmv, "bfs": run_bfs,
            "sssp": run_sssp, "cc": run_cc, "bc": run_bc, "tc": run_tc,
            "scc": run_scc, "mst": run_mst, "vc": run_vc,
@@ -434,12 +475,13 @@ def main(argv=None) -> int:
     if not argv or argv[0] not in KERNELS:
         print("Usage: python -m gardenia_tpu_torch.cli <kernel> <filetype> "
               "<graph-prefix|scale> [kernel args...] [--variant=NAME] "
-              f"[--device={{cuda,cpu}}]\nkernels: {' '.join(sorted(KERNELS))}")
+              "[--device={cuda,cpu}] [--dist=N]\n"
+              f"kernels: {' '.join(sorted(KERNELS))}")
         return 1
     kernel = argv[0]
     # flags may stand anywhere among the positionals (the reference
     # binaries are purely positional; the flags are this CLI's)
-    variant, device_name = None, "cuda"
+    variant, device_name, dist = None, "cuda", None
     rest = []
     words = iter(argv[1:])
     for word in words:
@@ -451,10 +493,12 @@ def main(argv=None) -> int:
             device_name = word.split("=", 1)[1]
         elif word == "--device":
             device_name = next(words, "")
-        elif word.startswith("--dist"):
-            print("--dist is not ported: the port has no multi-device "
-                  "solvers yet")
-            return 1
+        elif word.startswith("--dist="):
+            dist = word.split("=", 1)[1]
+            if not dist.isdigit() or int(dist) < 1:
+                print(f"--dist takes a number of ranks, got {dist!r}")
+                return 1
+            dist = int(dist)
         else:
             print(f"unknown flag {word!r}")
             return 1
@@ -464,7 +508,15 @@ def main(argv=None) -> int:
     if len(rest) < 2:
         print("expected <filetype> <graph-prefix|scale> after the kernel")
         return 1
+    if dist is not None and kernel not in DIST_KERNELS:
+        print(f"kernel {kernel!r} has no multi-device path yet")
+        return 1
     device = resolve_device(device_name)
+    if dist is not None:
+        if variant is not None:
+            print(f"(--variant={variant} is ignored for --dist runs: "
+                  f"the multichip solvers pick their own mapping)")
+        return run_dist(kernel, dist, rest, device)
     kw = {} if variant is None else {"variant": variant}
     try:
         ok = KERNELS[kernel](rest, device, **kw)

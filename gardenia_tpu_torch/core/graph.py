@@ -122,6 +122,14 @@ class Graph:
             self._device_cache[key] = (fn(), retain)
         return self._device_cache[key][0]
 
+    def __getstate__(self):
+        """A Graph is pickled (to hand it to another process, such as a
+        rank of parallel/) with its arrays only: the cache of derived
+        views may hold device tensors, and is rebuilt where it is used."""
+        state = dict(self.__dict__)
+        state["_device_cache"] = {}
+        return state
+
     def __repr__(self):
         return (f"Graph(|V|={self.m}, |E|={self.nnz}, "
                 f"symmetric={self.symmetric}, weighted="

@@ -107,15 +107,18 @@ def build_hybrid(rowptr: np.ndarray,
                  weights: Optional[np.ndarray] = None,
                  *,
                  num_cols: int,
-                 dense_threshold: int = 16) -> HybridMatrix:
+                 dense_threshold: int = 16,
+                 factor_scale: bool = True) -> HybridMatrix:
     """Host-side grouping of a CSR matrix into the hybrid layout (CPU
     tensors; `.to(device)` uploads).
 
     weights None -> unweighted int8 edge counts; weighted panels take the
     narrowest of int8, bf16 and f32 that holds their cells exactly, as the
-    reference's block_dtype='auto' does (its block_dtype and factor_scale
-    options have no caller in the port and are not carried).  Duplicate
-    edges accumulate additively in both layouts.
+    reference's block_dtype='auto' does (its block_dtype option has no
+    caller in the port and is not carried).  factor_scale=False keeps
+    uniform weights in the panels (parallel/partition's stacked form needs
+    one scale across shards).  Duplicate edges accumulate additively in
+    both layouts.
     """
     from gardenia_tpu_torch.core import build as _build
 
@@ -127,7 +130,7 @@ def build_hybrid(rowptr: np.ndarray,
     # constant-value factorization: A = w0 * structure rides the
     # unweighted int8 count layout and consumers scale y once
     scale = 1.0
-    if weights is not None and nnz:
+    if factor_scale and weights is not None and nnz:
         w0 = np.asarray(weights).flat[0]
         if w0 != 0 and np.all(weights == w0):
             scale = float(w0)

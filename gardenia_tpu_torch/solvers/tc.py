@@ -273,15 +273,20 @@ def tc_bsearch(g, *, chunk: int = 1 << 20, presorted_dag: bool = False,
     reference's int32 edge-range slicing is not needed."""
     dev = resolve_device(device)
     dag = g if presorted_dag else g._dev(("oriented",), g.oriented)
-    nnz = dag.nnz
-    if nnz == 0:
+    if dag.nnz == 0:
         return 0
-    chunk = max(1, chunk)
+    index = wedge_index(dag, dev)
+    return int(count_wedges(index, 0, index[4], chunk))
 
+
+def wedge_index(dag, dev):
+    """(rowptr i64, colidx, src of each arc, first wedge of each arc i64
+    with the total appended, total wedges, search rounds) of a DAG with
+    arcs, on dev and cached there: the wedge space that tc_bsearch and
+    parallel/tc enumerate (arc e = (u, v) owns deg(u) wedges)."""
     def mk():
         deg = np.diff(dag.rowptr)
         src = np.repeat(np.arange(dag.m, dtype=np.int32), deg)
-        # first wedge of each DAG edge (u, v): edge e owns deg(u) wedges
         first = np.concatenate([[0], np.cumsum(deg[src].astype(np.int64))])
 
         def up(a):
@@ -289,19 +294,24 @@ def tc_bsearch(g, *, chunk: int = 1 << 20, presorted_dag: bool = False,
         rounds = max(1, int(np.ceil(np.log2(max(2, deg.max() + 1)))) + 1)
         return (up(dag.rowptr.astype(np.int64)), up(dag.colidx), up(src),
                 up(first), int(first[-1]), rounds)
+    return dag._dev(_key("tc_bsearch", dev), mk)
 
-    rowptr, colidx, src, first, n_wedges, rounds = dag._dev(
-        _key("tc_bsearch", dev), mk)
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    for lo in range(0, n_wedges, chunk):
-        j = torch.arange(lo, min(n_wedges, lo + chunk),
-                         dtype=torch.int64, device=dev)
+
+def count_wedges(index, lo: int, hi: int, chunk: int) -> torch.Tensor:
+    """int64 scalar tensor: the closed wedges among wedges [lo, hi) of
+    wedge_index's space, `chunk` wedges a step."""
+    rowptr, colidx, src, first, _, rounds = index
+    chunk = max(1, chunk)
+    total = torch.zeros((), dtype=torch.int64, device=colidx.device)
+    for start in range(lo, hi, chunk):
+        j = torch.arange(start, min(hi, start + chunk), dtype=torch.int64,
+                         device=colidx.device)
         e = torch.searchsorted(first, j, right=True) - 1
         u, v = src[e], colidx[e]
         w = colidx[rowptr[u] + (j - first[e])]
         total += membership_counts(rowptr, colidx, w, v,
                                    search_rounds=rounds)
-    return int(total)
+    return total
 
 
 def tc_solver(g, *, variant: str = "rotate", device="cuda", **kw) -> int:

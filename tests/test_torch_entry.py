@@ -226,7 +226,8 @@ def test_cli_bfs_source_is_the_fifth_positional():
 
 @pytest.mark.parametrize("words,message", [
     (("cc", "rmat", "10", "--bogus=1"), "unknown flag '--bogus=1'"),
-    (("cc", "rmat", "10", "--dist=4"), "--dist is not ported"),
+    (("cc", "rmat", "10", "--dist=4"),
+     "kernel 'cc' has no multi-device path yet"),
     (("cc", "rmat", "10", "--variant=nope", "--device=cpu"),
      "unknown CC variant 'nope'"),
     (("bc", "rmat", "10", "--variant=nope", "--device=cpu"),
