@@ -221,12 +221,32 @@ result:
      each with its solve ms (the second solve; the first builds the
      shard), its collectives' calls, bytes and ms an iteration (replayed
      alone), the backend; then the CLI's pr rmat 16 --dist=2 (Correct),
-     entry()'s step on the card against CPU tensors, dryrun_multichip(2)
-     and the bench's --quick (one JSON line at scale 16).  On each rank
-     of the hybrid PR, BFS and MS-BFS cases, K1's calls of the first
-     solve are held to its plain version on the same shard arrays and
-     operand, and the PR and BFS shard's whole apply to scipy's product
-     of the graph's rows.  K1's launches_by_path gains the dist paths.
+     entry()'s step on the card against CPU tensors and the bench's
+     --quick (one JSON line at scale 16).  On each rank of the hybrid PR,
+     BFS and MS-BFS cases, K1's calls of the first solve are held to its
+     plain version on the same shard arrays and operand, and the PR and
+     BFS shard's whole apply to scipy's product of the graph's rows.
+     K1's launches_by_path gains the dist paths;
+  24. the rest of the multi-device layer, in phase 23's two groups:
+     cc_solver_dist hybrid at R-MAT-20 (a bijection of scipy's
+     components; K2 on each rank's shard every round) and
+     sssp_solver_dist hybrid, unweighted, from the vertex of highest
+     degree (scipy's BFS depths; M1 every round), on one and two ranks;
+     M1 timed alone on the one-rank shard beside its plain version, K2 on
+     the same panels and its bound; at R-MAT-16 on two ranks CC ell, SSSP
+     ell and hybrid on hashed weights (scipy's Dijkstra), SpMV (scipy's
+     f64 product), BC hybrid with 128 sources (bc_batched), SymGS
+     (symgs_solver), SGD's full-batch steps (an f64 numpy replica), MST
+     (scipy's tree weight), and the 1x2 mesh's TC, SCC and VC (tc_solver,
+     scipy's SCCs, vc_check); every K2 and M1 call of the first solves
+     held exactly to its plain version, their launches in the second =
+     rounds x the rank's panel arrays; M1's hand cases (each panel dtype
+     and its widest weight, W 1/4/32, scale 1 and 3, -0.0 cells, rows
+     with no edge, candidates past the sentinel); dryrun_multichip(2)
+     with all 13 of the JAX dryrun's kernels.  The kernels line gains M1
+     and K2's dist paths.
+`python3 chip_smoke.py --dist-only` runs phases 1, 2, 23 and 24 alone,
+without the last two lines: a quick check of a change to the dist path.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (bound_ms: the larger of the bytes each input and
 output moves once over 3.35 TB/s and the operations over the card's peak
@@ -278,6 +298,15 @@ K1_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:67"
 K2_SOURCE = "gardenia_tpu_torch/csrc/dense_panel_minselect.cu"
 K2_REPLACES = "gardenia_tpu/ops/pallas_bsr.py:113"
 SENT = 2 ** 31 - 1          # the min-select sentinel (INT32_MAX)
+# M1, the min-plus twin of K2 in K2_SOURCE: it replaces the XLA masked
+# reduce-min of the JAX package's spmv_hybrid_min_plus (no Pallas kernel)
+M1_REPLACES = "gardenia_tpu/ops/bsr.py:488"
+# the widest weight each panel dtype holds as build_hybrid fills it: int8
+# to 127, bf16 integers to 256; f32 integers are exact to 2^24
+M1_TOP_WEIGHTS = ((0, 127), (1, 256), (2, 1 << 24))
+# [24]'s dist SGD at R-MAT-16: full-batch steps (the solver's default step
+# 0.003 diverges there: a hub's gradient sums thousands of edges)
+DIST_SGD_ITERS, DIST_SGD_STEP = 3, 1e-4
 # published peaks of one H100 SXM (NVIDIA's H100 datasheet): device
 # memory bytes/s; the non-tensor f32 rate, taken for the CUDA-core integer
 # and f32 work; and the dense bf16 tensor-core rate (no sparsity), taken
@@ -2479,33 +2508,186 @@ def hold_shard_apply(gr, sh, x3d) -> dict:
                        and np.isfinite(rel) and rel < SHARD_REL_LIMIT)}
 
 
+def record_min_kernels(run):
+    """(run()'s result, {"k2": stats, "m1": stats}, the operand of M1's
+    call with the most entries under the sentinel, or None): every call
+    of K2 (minselect.dense_panel_minselect) and M1 (dense_panel_minplus)
+    in the run is held, as it returns, to its plain version on the same
+    panel array, block table and operand, exactly; stats count the calls,
+    the rows and the rows that differ, and the worst |diff|."""
+    import torch
+    from gardenia_tpu_torch.ops import minselect
+    keep = (minselect.dense_panel_minselect, minselect.dense_panel_minplus)
+    stats = {k: {"calls": 0, "rows": 0, "mismatches": 0, "max_abs_err": 0}
+             for k in ("k2", "m1")}
+    operand = {"x2d": None, "live": -1}
+
+    def hold(name, y_k, y_p):
+        st = stats[name]
+        if y_k.shape != y_p.shape or y_k.dtype != torch.int32:
+            st["mismatches"] += max(1, y_p.numel())
+            return
+        diff = (y_k.long() - y_p.long()).abs()
+        st["calls"] += 1
+        st["rows"] += y_k.numel()
+        st["mismatches"] += int((diff != 0).sum())
+        st["max_abs_err"] = max(st["max_abs_err"], int(diff.max())
+                                if diff.numel() else 0)
+
+    def k2(panel, src, x2d, sentinel):
+        y = keep[0](panel, src, x2d, sentinel)
+        hold("k2", y, minselect.dense_panel_minselect_plain(panel, src, x2d,
+                                                            sentinel))
+        return y
+
+    def m1(panel, src, x2d, sentinel, scale=1):
+        y = keep[1](panel, src, x2d, sentinel, scale)
+        hold("m1", y, minselect.dense_panel_minplus_plain(panel, src, x2d,
+                                                          sentinel, scale))
+        live = int((x2d < sentinel).sum())
+        if live > operand["live"]:
+            operand.update(x2d=x2d.clone(), live=live)
+        return y
+
+    minselect.dense_panel_minselect, minselect.dense_panel_minplus = k2, m1
+    try:
+        res = run()
+    finally:
+        minselect.dense_panel_minselect, minselect.dense_panel_minplus = keep
+    return res, stats, operand["x2d"]
+
+
+def time_m1(sh, x2d) -> dict:
+    """M1 alone over every panel array of a rank's shard with the operand
+    x2d, by CUDA events, in turns with its plain version; K2 on the same
+    panels and labels beside it; the sweep's bytes and its bound."""
+    from gardenia_tpu_torch.core import types as T
+    from gardenia_tpu_torch.ops import minselect
+    inf, scale = int(T.MYINFINITY), int(sh.mat.scale)
+
+    def sweep(fn, *extra):
+        return lambda: [fn(p.panel, p.src, x2d, inf, *extra)
+                        for p in sh.mat.dense]
+    t = {"m1": [], "plain": [], "k2": []}
+    for which in ("plain", "m1", "m1", "plain"):
+        if which == "m1":
+            t["m1"].append(cuda_ms(sweep(minselect.dense_panel_minplus,
+                                         scale), reps=10, warmup=1))
+            t["k2"].append(cuda_ms(sweep(minselect.dense_panel_minselect),
+                                   reps=10, warmup=1))
+        else:
+            t["plain"].append(cuda_ms(sweep(
+                minselect.dense_panel_minplus_plain, scale), reps=1,
+                warmup=1))
+    nbytes, cells, nz = panel_work(sh.mat, x2d.numel() * 4)
+    # a compare a cell; an add and a min a nonzero cell
+    b_ms, b_by = bound(nbytes, cells + 2 * nz)
+    return {"ms": sum(t["m1"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+            "k2_ms_same_panels": sum(t["k2"]) / 2, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "cells": cells,
+            "nonzero_cells": nz, "arrays": len(sh.mat.dense),
+            "runs": {k: [round(v, 4) for v in vs] for k, vs in t.items()}}
+
+
+def m1_hand_cases(dev) -> dict:
+    """M1 against its plain version on hand-made panels, exactly: each
+    panel dtype at W = 1, 4 and 32 (one 16-byte chunk a lane and row
+    groups of 8, 16 and 32 lanes), scale 1 and 3, sparse cells of random
+    weights with some at the widest weight the dtype holds (M1_TOP_WEIGHTS)
+    and, in bf16 and f32, some -0.0 cells (no edge); rows with no cell
+    (the sentinel); a slot whose every cell is an edge and whose operand
+    is all sentinel (the sum passes it: clamped); an operand a third
+    sentinel."""
+    import torch
+    from gardenia_tpu_torch.core import types as T
+    from gardenia_tpu_torch.ops import minselect
+    inf = int(T.MYINFINITY)
+    dtypes = {0: torch.int8, 1: torch.bfloat16, 2: torch.float32}
+    rng = np.random.default_rng(24)
+    st = {"cases": 0, "rows": 0, "mismatches": 0, "max_abs_err": 0}
+    qx = 40
+    x = rng.integers(0, 1 << 20, qx * 128).astype(np.int32)
+    x[rng.random(qx * 128) < 0.33] = inf
+    x[-128:] = inf                            # the last block: all sentinel
+    x2d = torch.from_numpy(x.reshape(qx, 128)).to(dev)
+    for code, top in M1_TOP_WEIGHTS:
+        for W in (1, 4, 32):
+            R = 9
+            cells = np.zeros((R, 128, W * 128), np.float32)
+            hit = rng.random(cells.shape) < 0.04
+            cells[hit] = rng.integers(1, min(top, 100) + 1, int(hit.sum()))
+            cells[hit & (rng.random(cells.shape) < 0.1)] = top
+            cells[:, ::7] = 0                 # rows with no neighbour
+            cells[R - 1] = top                # a slot of edges only ...
+            src = rng.integers(0, qx - 1, (R, W)).astype(np.int32)
+            src[R - 1] = qx - 1               # ... on an all-sentinel block
+            panel = torch.from_numpy(cells).to(dtypes[code])
+            if code:
+                zero = torch.from_numpy(~hit & (rng.random(cells.shape)
+                                                < 0.01))
+                panel[zero] = -0.0
+            panel, src_t = panel.to(dev), torch.from_numpy(src).to(dev)
+            for scale in (1, 3):
+                y_k = minselect.dense_panel_minplus(panel, src_t, x2d, inf,
+                                                    scale)
+                y_p = minselect.dense_panel_minplus_plain(panel, src_t, x2d,
+                                                          inf, scale)
+                diff = (y_k.long() - y_p.long()).abs()
+                st["cases"] += 1
+                st["rows"] += y_k.numel()
+                st["mismatches"] += int((diff != 0).sum())
+                st["max_abs_err"] = max(st["max_abs_err"], int(diff.max()))
+                if not (y_p[:, ::7] == inf).all() or \
+                        not (y_p[R - 1] == inf).all():
+                    fail(f"M1's plain version: rows without a candidate "
+                         f"under the sentinel are not the sentinel "
+                         f"({dtypes[code]}, W={W}, scale {scale})")
+    return st
+
+
 def dist_rank(mesh, graphs: dict, cases):
-    """Phase 23 on one rank: for each case (kernel, graph name, args,
-    kwargs), the dist solver of gardenia_tpu_torch.parallel on that graph,
-    twice: the first solve builds the rank's shard, with K1's calls
-    recorded; the second runs with K1's launch counts and the mesh's
-    collective counts set to 0 just before and read just after, timed by
-    the host clock between synchronizes; then its collectives replayed
-    alone, and K1's recorded calls held against the plain version
-    (hold_k1_calls) and, on the hybrid PR and BFS shards, the whole
-    shard's apply against scipy (hold_shard_apply).  A case's result comes
-    back from rank 0 (all ranks hold it)."""
+    """Phases 23 and 24 on one rank: for each case (kernel, graph name,
+    args, kwargs), the dist solver of gardenia_tpu_torch.parallel on that
+    graph, twice: the first solve builds the rank's shard, with K1's calls
+    recorded and every K2 and M1 call held to its plain version as it
+    returns (record_min_kernels); the second runs with K1's, K2's and M1's
+    launch counts and the mesh's collective counts set to 0 just before
+    and read just after, timed by the host clock between synchronizes;
+    then its collectives replayed alone, and K1's recorded calls held
+    against the plain version (hold_k1_calls) and, on the hybrid PR and
+    BFS shards, the whole shard's apply against scipy (hold_shard_apply).
+    On one rank, M1 is timed alone on the SSSP shard (time_m1).  A case's
+    result comes back from rank 0 (all ranks hold it)."""
     import torch
     from gardenia_tpu_torch import parallel
-    from gardenia_tpu_torch.ops import panel
+    from gardenia_tpu_torch.core.relabel import relabeled
+    from gardenia_tpu_torch.ops import minselect, panel
+    from gardenia_tpu_torch.parallel.pr import shard_of
     solvers = {"pr": parallel.pr_solver_dist, "bfs": parallel.bfs_solver_dist,
                "msbfs": parallel.bfs_multi_source_dist,
                "tc": parallel.tc_solver_dist, "vc": parallel.vc_solver_dist,
-               "scc": parallel.scc_solver_dist}
+               "scc": parallel.scc_solver_dist,
+               "cc": parallel.cc_solver_dist,
+               "sssp": parallel.sssp_solver_dist,
+               "spmv": parallel.spmv_solver_dist,
+               "symgs": parallel.symgs_solver_dist,
+               "bc": parallel.bc_batched_dist,
+               "mst": parallel.mst_solver_dist,
+               "sgd": parallel.sgd_train_dist,
+               "tc2d": parallel.tc_solver_dist2d,
+               "scc2d": parallel.scc_solver_dist2d,
+               "vc2d": parallel.vc_solver_dist2d}
     outs = []
     for kernel, name, args, kwargs in cases:
         g, solve = graphs[name], solvers[kernel]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, k1_rec = record_k1(lambda: solve(g, *args, mesh=mesh, **kwargs))
+        (_, k1_rec), mins, x2d = record_min_kernels(lambda: record_k1(
+            lambda: solve(g, *args, mesh=mesh, **kwargs)))
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         panel.LAUNCHES.update(simt=0, tc=0)
+        minselect.LAUNCHES = minselect.MINPLUS_LAUNCHES = 0
         mesh.calls = dict.fromkeys(mesh.calls, 0)
         mesh.bytes = dict.fromkeys(mesh.bytes, 0)
         torch.cuda.synchronize()
@@ -2513,7 +2695,10 @@ def dist_rank(mesh, graphs: dict, cases):
         res = solve(g, *args, mesh=mesh, **kwargs)
         torch.cuda.synchronize()
         out = {"ms": (time.perf_counter() - t0) * 1e3, "first_s": first_s,
-               "launches": dict(panel.LAUNCHES), "calls": dict(mesh.calls),
+               "launches": dict(panel.LAUNCHES),
+               "k2_launches": minselect.LAUNCHES,
+               "m1_launches": minselect.MINPLUS_LAUNCHES,
+               "calls": dict(mesh.calls),
                "bytes": dict(mesh.bytes), "mesh": mesh.describe(),
                "result": res if mesh.rank == 0 else None,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2521,16 +2706,22 @@ def dist_rank(mesh, graphs: dict, cases):
                                               out["bytes"])
         if k1_rec is not None:
             out["k1_hold"] = hold_k1_calls(k1_rec)
-        if kernel in ("pr", "bfs") and \
-                kwargs.get("layout", "hybrid") == "hybrid":
-            from gardenia_tpu_torch.core.relabel import relabeled
-            from gardenia_tpu_torch.parallel.pr import shard_of
+        for k in ("k2", "m1"):
+            if mins[k]["calls"]:
+                out[f"{k}_hold"] = mins[k]
+        hybrid = kwargs.get("layout", "hybrid") == "hybrid"
+        if kernel in ("pr", "bfs", "cc", "sssp") and hybrid:
             gr = relabeled(g).graph
-            sh = shard_of(gr, mesh, "hybrid", "edges")
+            sh = shard_of(gr, mesh, "hybrid", "edges",
+                          reverse=kernel != "cc",
+                          weighted=kernel == "sssp" and
+                          gr.weights is not None)
             out["arrays"] = len(sh.mat.dense)
-            if k1_rec is not None:
+            if kernel in ("pr", "bfs") and k1_rec is not None:
                 out["shard_hold"] = hold_shard_apply(gr, sh, k1_rec["x3d"])
-        del k1_rec
+            if kernel == "sssp" and mesh.size == 1 and x2d is not None:
+                out["m1_time"] = time_m1(sh, x2d)
+        del k1_rec, x2d
         outs.append(out)
     return outs
 
@@ -2562,14 +2753,14 @@ def dist_phase(dev, gpu: str, g, g16) -> tuple:
     want = single.scores.cpu().numpy()
     k1, holds = {}, {}
 
-    def report(label, ranks, per_iter, extra=""):
+    def report(label, ranks, per_iter, extra="", phase=23):
         r0 = ranks[0]
         iters = max(1, per_iter)
         holds = [{k: r[k] for k in ("k1_hold", "shard_hold") if k in r}
                  for r in ranks]
         if any(holds):
             extra += f"; holds by rank {json.dumps(holds)}"
-        print(f"[23] {label}: {r0['mesh']}; solve {r0['ms']:.3f} ms (first "
+        print(f"[{phase}] {label}: {r0['mesh']}; solve {r0['ms']:.3f} ms (first "
               f"{r0['first_s']:.1f} s with the shard's build); collectives "
               f"a rank {json.dumps(r0['calls'])}, "
               f"{sum(r0['bytes'].values()) / iters / 1e6:.3f} MB and "
@@ -2598,7 +2789,10 @@ def dist_phase(dev, gpu: str, g, g16) -> tuple:
                 r["shard_hold"]["max_rel_err"] for r in ranks)
 
     # ---- one rank (nccl) on R-MAT-20; two (gloo) on R-MAT-20 and 16 -----
+    # [23]'s cases and [24]'s run in the same two groups: the ranks
+    # relabel R-MAT-20 once, and its CC and SSSP shards are PR's
     src = int(np.argmax(g16.degrees))
+    src20 = int(np.argmax(g.degrees))
     sources = np.arange(bench.SOURCES)
     gd16 = bench.get_graph_directed(SMOKE_SCALE)
     cases = {f"pr dist2 rmat{MAIN_SCALE}": ("pr", "g", (), {}),
@@ -2611,19 +2805,59 @@ def dist_phase(dev, gpu: str, g, g16) -> tuple:
              f"tc dist2 rmat{SMOKE_SCALE}": ("tc", "g16", (), {}),
              f"vc dist2 rmat{SMOKE_SCALE}": ("vc", "g16", (), {}),
              f"scc dist2 rmat{SMOKE_SCALE}d": ("scc", "gd16", (), {})}
+    rng = np.random.default_rng(24)
+    spmv_in = (rng.random(g16.nnz).astype(np.float32),
+               rng.random(g16.n).astype(np.float32))
+    from gardenia_tpu_torch.solvers.vc import vc_solver
+    symgs_in = (rng.random(g16.nnz).astype(np.float32),
+                rng.random(g16.m).astype(np.float32),
+                rng.random(g16.m).astype(np.float32),
+                (g16.degrees + 1).astype(np.float32),
+                vc_solver(g16, device=dev).colors.cpu().numpy())
+    big = {f"cc hybrid dist{n} rmat{MAIN_SCALE}": ("cc", "g", (), {})
+           for n in (1, 2)}
+    big.update({f"sssp hybrid dist{n} rmat{MAIN_SCALE} from {src20}":
+                ("sssp", "g", (src20,), {}) for n in (1, 2)})
+    cases24 = {
+        **{k: v for k, v in big.items() if "dist2" in k},
+        f"cc ell dist2 rmat{SMOKE_SCALE}": ("cc", "g16", (),
+                                            {"layout": "ell"}),
+        f"sssp ell dist2 rmat{SMOKE_SCALE}w from {src}":
+        ("sssp", "g16w", (src,), {"layout": "ell"}),
+        f"sssp hybrid dist2 rmat{SMOKE_SCALE}w from {src}":
+        ("sssp", "g16w", (src,), {}),
+        f"spmv dist2 rmat{SMOKE_SCALE}": ("spmv", "g16", spmv_in, {}),
+        f"bc dist2 rmat{SMOKE_SCALE}, {len(sources)} sources":
+        ("bc", "g16", (sources,), {"layout": "hybrid"}),
+        f"symgs dist2 rmat{SMOKE_SCALE}": ("symgs", "g16", symgs_in, {}),
+        f"sgd dist2 rmat{SMOKE_SCALE}, {DIST_SGD_ITERS} iterations":
+        ("sgd", "g16r", (), {"iters": DIST_SGD_ITERS,
+                             "step": DIST_SGD_STEP}),
+        f"mst dist2 rmat{SMOKE_SCALE}w": ("mst", "g16w", (), {}),
+        f"tc2d dist2 rmat{SMOKE_SCALE}": ("tc2d", "g16", (), {}),
+        f"scc2d dist2 rmat{SMOKE_SCALE}d": ("scc2d", "gd16", (), {}),
+        f"vc2d dist2 rmat{SMOKE_SCALE}": ("vc2d", "g16", (), {})}
+    one_cases = {f"pr dist1 rmat{MAIN_SCALE}":
+                 cases[f"pr dist2 rmat{MAIN_SCALE}"],
+                 **{k: v for k, v in big.items() if "dist1" in k}}
     graphs = {"g": from_csr_of(g), "g16": from_csr_of(g16),
-              "gd16": from_csr_of(gd16)}
+              "gd16": from_csr_of(gd16),
+              "g16w": from_csr_of(bench.mst_graph(g16)),
+              "g16r": from_csr_of(bench.sgd_graph(g16))}
     t0 = time.perf_counter()
     one = run_on_ranks(dist_rank, 1, "cuda", {"g": graphs["g"]},
-                       [cases[f"pr dist2 rmat{MAIN_SCALE}"]])
+                       list(one_cases.values()))
     t_one = time.perf_counter() - t0
     t0 = time.perf_counter()
-    two = run_on_ranks(dist_rank, 2, "cuda", graphs, list(cases.values()))
+    two = run_on_ranks(dist_rank, 2, "cuda", graphs,
+                       list(cases.values()) + list(cases24.values()))
     print(f"[23] runs: one rank {t_one:.1f} s, two ranks "
           f"{time.perf_counter() - t0:.1f} s (spawn, the graphs to the ranks, "
-          f"each rank's relabelling and shards, two solves a case)")
-    got = {f"pr dist1 rmat{MAIN_SCALE}": [one[0][0]]}
-    got.update({label: [r[i] for r in two] for i, label in enumerate(cases)})
+          f"each rank's relabelling and shards, two solves a case; [24]'s "
+          f"cases among them)")
+    got = {label: [one[0][i]] for i, label in enumerate(one_cases)}
+    got.update({label: [r[i] for r in two]
+                for i, label in enumerate([*cases, *cases24])})
 
     for n in (1, 2):
         label = f"pr dist{n} rmat{MAIN_SCALE}"
@@ -2731,11 +2965,275 @@ def dist_phase(dev, gpu: str, g, g16) -> tuple:
           f"K1): max|diff| {diff:.3e}")
     if not diff < 1e-6:
         fail("entry()'s step on the card differs from the plain one")
-    t0 = time.perf_counter()
-    dryrun_multichip(2)                      # prints its OK line or raises
-    print(f"[23] dryrun_multichip(2): {time.perf_counter() - t0:.1f} s")
     print(f"[23] phase time {time.perf_counter() - t_phase:.1f} s")
-    return k1, holds
+    clock(24)
+    p24 = dist_rest(dev, gpu, g, g16, gd16, graphs, got, cases24, src, src20,
+                    spmv_in, symgs_in, want_tc, want_scc, report, hold_ranks,
+                    k1)
+    return k1, holds, p24
+
+
+def dist_rest(dev, gpu: str, g, g16, gd16, graphs, got, cases24, src: int,
+              src20: int, spmv_in, symgs_in, want_tc: int, want_scc,
+              report, hold_ranks, k1: dict) -> dict:
+    """Phase 24: the rest of the multi-device layer, from [23]'s groups.
+    At R-MAT-20 on one rank (nccl) and two (gloo): cc_solver_dist hybrid
+    against scipy's components (a bijection), K2 on each rank's shard
+    every round; sssp_solver_dist hybrid, unweighted, from the vertex of
+    highest degree against scipy's BFS depths, M1 every round, and M1 timed
+    alone on the one-rank shard beside its plain version, K2 on the same
+    panels and its bound.  At R-MAT-16 on two ranks: CC ell; SSSP ell and
+    hybrid on the MST bench's hashed weights against scipy's Dijkstra;
+    SpMV against scipy's f64 product; BC hybrid (128 sources) against
+    bc_batched; SymGS against symgs_solver on the same inputs; SGD's
+    full-batch steps against an f64 numpy replica; MST against scipy's
+    tree weight; the 1x2 mesh's TC, SCC and VC against tc_solver, scipy's
+    SCCs and vc_check.  Every K2 and M1 call of the cases' first solves
+    held exactly to its plain version; K2's and M1's launches of the
+    second solves = rounds x the rank's panel arrays; M1's hand cases;
+    dryrun_multichip(2) with all 13 kernels.  Returns K2's and M1's
+    launches by path, their holds and M1's timing."""
+    import scipy.sparse.csgraph as csg
+    from gardenia_tpu_torch.cli import same_components
+    from gardenia_tpu_torch.core import types as T
+    from gardenia_tpu_torch.entry import dryrun_multichip
+    from gardenia_tpu_torch.solvers.bc import bc_batched
+    from gardenia_tpu_torch.solvers.symgs import symgs_solver
+    from gardenia_tpu_torch.verify import oracles
+    t_phase = time.perf_counter()
+    report = functools.partial(report, phase=24)
+    inf = int(T.MYINFINITY)
+    out = {"k2_paths": {}, "m1_paths": {}, "k2_holds": {}, "m1_holds": {},
+           "m1_time": None}
+    share = sum(r["first_s"] + r["ms"] / 1e3 for label in cases24
+                for r in got[label][:1])
+    share += sum(got[label][0]["first_s"] + got[label][0]["ms"] / 1e3
+                 for label in got if "dist1" in label and
+                 not label.startswith("pr"))
+
+    def kernel_holds(label, ranks, key, launches_key, rounds, paths, hold):
+        """Fail unless every rank's K2 or M1 calls held exactly and each
+        launched rounds x its arrays in the timed solve."""
+        for r in ranks:
+            h = r.get(key)
+            if h is None or not h["calls"] or h["mismatches"]:
+                fail(f"{label}: {key[:2].upper()} on a rank's shard "
+                     f"disagrees with its plain version or was not held: "
+                     f"{h}")
+            if r[launches_key] != rounds * r["arrays"] or \
+                    not r[launches_key]:
+                fail(f"{label}: {r[launches_key]} launches on a rank != "
+                     f"{rounds} rounds x {r['arrays']} arrays")
+        paths[label] = sum(r[launches_key] for r in ranks)
+        hold[label] = {"calls": sum(r[key]["calls"] for r in ranks),
+                       "rows": sum(r[key]["rows"] for r in ranks),
+                       "mismatches": 0}
+
+    # ---- R-MAT-20: CC and SSSP hybrid on one and two ranks --------------
+    t0 = time.perf_counter()
+    _, comp20 = csg.connected_components(scipy_csr(g), directed=False)
+    depth20 = bfs_depths_scipy(g, [src20])[:, 0]
+    print(f"[24] scipy's R-MAT-{MAIN_SCALE} components and BFS depths from "
+          f"{src20}: {time.perf_counter() - t0:.1f} s")
+    for n in (1, 2):
+        label = f"cc hybrid dist{n} rmat{MAIN_SCALE}"
+        ranks = got[label]
+        res = ranks[0]["result"]
+        ok = same_components(res.comp.numpy(), comp20)
+        report(label, ranks, res.iterations,
+               f"; {res.iterations} rounds, {len(np.unique(res.comp))} "
+               f"components: {'a bijection' if ok else 'NOT a bijection'} "
+               f"of scipy's; K2 launches by rank "
+               f"{[r['k2_launches'] for r in ranks]}, arrays "
+               f"{[r['arrays'] for r in ranks]}")
+        if not ok:
+            fail(f"{label} disagrees with scipy's components")
+        kernel_holds(label, ranks, "k2_hold", "k2_launches", res.iterations,
+                     out["k2_paths"], out["k2_holds"])
+        label = f"sssp hybrid dist{n} rmat{MAIN_SCALE} from {src20}"
+        ranks = got[label]
+        res = ranks[0]["result"]
+        ok = bool((res.dist.numpy() == depth20).all())
+        report(label, ranks, res.iterations,
+               f"; {res.iterations} rounds, distances "
+               f"{'equal' if ok else 'NOT equal'} to scipy's BFS depths; M1 "
+               f"launches by rank {[r['m1_launches'] for r in ranks]}")
+        if not ok:
+            fail(f"{label} disagrees with scipy's BFS depths")
+        kernel_holds(label, ranks, "m1_hold", "m1_launches", res.iterations,
+                     out["m1_paths"], out["m1_holds"])
+        if n == 1:
+            out["m1_time"] = tm = ranks[0]["m1_time"]
+            print(f"[24] M1 alone on the one-rank R-MAT-{MAIN_SCALE} shard "
+                  f"({tm['arrays']} panel arrays, {tm['nonzero_cells']} "
+                  f"nonzero of {tm['cells']} cells): {tm['ms']:.3f} ms, "
+                  f"plain {tm['plain_ms']:.3f} ms, K2 on the same panels "
+                  f"{tm['k2_ms_same_panels']:.3f} ms; {tm['bytes'] / 1e9:.3f}"
+                  f" GB once -> {tm['bytes'] / tm['ms'] / 1e6:.0f} GB/s, "
+                  f"bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}); runs "
+                  f"{json.dumps(tm['runs'])}; gpu: {gpu}")
+
+    # ---- R-MAT-16 on two ranks -----------------------------------------
+    g16w = graphs["g16w"]
+    wi = np.asarray(g16w.weights, np.float64)
+    dij = csg.dijkstra(scipy_csr(g16w, wi), directed=True, indices=src)
+    dij = np.where(np.isfinite(dij), dij, inf)
+    label = f"cc ell dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    _, comp16 = csg.connected_components(scipy_csr(g16), directed=False)
+    ok = same_components(res.comp.numpy(), comp16)
+    report(label, ranks, res.iterations, f"; {res.iterations} rounds: "
+           f"{'a bijection' if ok else 'NOT a bijection'} of scipy's")
+    if not ok:
+        fail(f"{label} disagrees with scipy's components")
+    for layout in ("ell", "hybrid"):
+        label = f"sssp {layout} dist2 rmat{SMOKE_SCALE}w from {src}"
+        ranks = got[label]
+        res = ranks[0]["result"]
+        ok = bool((res.dist.numpy() == dij).all())
+        report(label, ranks, res.iterations, f"; {res.iterations} rounds, "
+               f"distances {'equal' if ok else 'NOT equal'} to scipy's "
+               f"Dijkstra")
+        if not ok:
+            fail(f"{label} disagrees with scipy's Dijkstra")
+        if layout == "hybrid":
+            kernel_holds(label, ranks, "m1_hold", "m1_launches",
+                         res.iterations, out["m1_paths"], out["m1_holds"])
+    label = f"spmv dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    ax, x = spmv_in
+    want = scipy_csr(g16, ax.astype(np.float64)) @ x.astype(np.float64)
+    y = ranks[0]["result"].numpy()
+    rel = float(np.abs(y - want).max() / np.abs(want).max())
+    ok = bool(np.allclose(y, want, rtol=2e-5, atol=1e-6))
+    report(label, ranks, 1, f"; max|diff| / max|y| vs scipy's f64 product "
+           f"{rel:.3e}: {'within' if ok else 'NOT within'} rtol 2e-5, "
+           f"atol 1e-6")
+    if not ok:
+        fail(f"{label} disagrees with scipy's product")
+    hold_ranks(label, ranks, shard=False)
+    k1[label] = {"simt": sum(r["launches"]["simt"] for r in ranks)}
+    label = next(k for k in cases24 if k.startswith("bc "))
+    ranks = got[label]
+    res = ranks[0]["result"]
+    want = bc_batched(g16, cases24[label][2][0], device=dev).scores.cpu() \
+        .numpy()
+    err = float(np.abs(res.scores.numpy() - want).max())
+    report(label, ranks, res.iterations, f"; {res.iterations} levels, "
+           f"max|diff| vs bc_batched {err:.3e} (limit 1e-5)")
+    if not err < 1e-5:
+        fail(f"{label} disagrees with bc_batched")
+    hold_ranks(label, ranks, shard=False)
+    k1[label] = {"tc": sum(r["launches"]["tc"] for r in ranks)}
+    label = f"symgs dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    want = symgs_solver(g16, *symgs_in, device=dev).x.cpu().numpy()
+    ok = bool(np.allclose(res.x.numpy(), want, rtol=1e-4, atol=1e-5))
+    report(label, ranks, 2 * res.num_colors, f"; {res.num_colors} colours,"
+           f" max|diff| vs symgs_solver "
+           f"{float(np.abs(res.x.numpy() - want).max()):.3e}: "
+           f"{'within' if ok else 'NOT within'} rtol 1e-4, atol 1e-5")
+    if not ok:
+        fail(f"{label} disagrees with symgs_solver")
+    hold_ranks(label, ranks, shard=False)
+    k1[label] = {"simt": sum(r["launches"]["simt"] for r in ranks)}
+    label = f"sgd dist2 rmat{SMOKE_SCALE}, {DIST_SGD_ITERS} iterations"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    t0 = time.perf_counter()
+    rmse, U, It = sgd_full_batch(graphs["g16r"], DIST_SGD_ITERS,
+                                 DIST_SGD_STEP)
+    rel_t = abs(float(res.rmse) - rmse) / rmse
+    rel_f = max(float(np.abs(res.user_lv.numpy() - U).max() /
+                      np.abs(U).max()),
+                float(np.abs(res.item_lv.numpy() - It).max() /
+                      np.abs(It).max()))
+    report(label, ranks, DIST_SGD_ITERS, f"; rmse {float(res.rmse):.6f}, "
+           f"the f64 replica's {rmse:.6f} ({time.perf_counter() - t0:.1f} s):"
+           f" rel diff {rel_t:.3e} (limit {SGD_TRACE_REL}), factors "
+           f"{rel_f:.3e} (limit {SGD_FACTOR_REL})")
+    if not (rel_t < SGD_TRACE_REL and rel_f < SGD_FACTOR_REL):
+        fail(f"{label} disagrees with its f64 replica")
+    label = f"mst dist2 rmat{SMOKE_SCALE}w"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    want = float(csg.minimum_spanning_tree(scipy_csr(g16w, wi)).sum())
+    report(label, ranks, 1, f"; weight {res.total_weight}, scipy's "
+           f"{want}: {'equal' if res.total_weight == want else 'NOT equal'}")
+    if res.total_weight != want:
+        fail(f"{label}'s weight differs from scipy's")
+    label = f"tc2d dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    report(label, ranks, 1, f"; {ranks[0]['result']} triangles (tc_solver "
+           f"{want_tc})")
+    if ranks[0]["result"] != want_tc:
+        fail(f"{label} disagrees with tc_solver")
+    label = f"scc2d dist2 rmat{SMOKE_SCALE}d"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    ok = same_components(res.scc_root.numpy(), want_scc)
+    report(label, ranks, res.iterations, f"; {res.iterations} rounds: "
+           f"{'a bijection' if ok else 'NOT a bijection'} of scipy's SCCs")
+    if not ok:
+        fail(f"{label} disagrees with scipy's strong components")
+    label = f"vc2d dist2 rmat{SMOKE_SCALE}"
+    ranks = got[label]
+    res = ranks[0]["result"]
+    ok = oracles.vc_check(g16, res.colors.numpy())
+    report(label, ranks, res.iterations, f"; {res.num_colors} colours in "
+           f"{res.iterations} rounds: {'proper' if ok else 'NOT proper'}")
+    if not ok:
+        fail(f"{label}'s colouring is not proper")
+
+    # ---- M1's hand cases, the 13-kernel dryrun ---------------------------
+    out["m1_hand"] = hand = m1_hand_cases(dev)
+    print(f"[24] M1 hand cases (int8/bf16/f32 panels, W 1/4/32, scale 1 and"
+          f" 3, the widest weights, -0.0 cells, rows with no edge, a slot "
+          f"past the sentinel): {json.dumps(hand)}")
+    if hand["mismatches"]:
+        fail(f"M1 disagrees with its plain version on the hand cases")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(2)               # prints its OK line or raises
+    kernels = line.split("kernels ")[1].split(",")[0].split("+")
+    print(f"[24] dryrun_multichip(2): {len(kernels)} kernels, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if len(kernels) != 13:
+        fail(f"dryrun_multichip ran {len(kernels)} kernels, not 13")
+    print(f"[24] K2 launches by path {json.dumps(out['k2_paths'])}, M1 "
+          f"{json.dumps(out['m1_paths'])}; gpu: {gpu}")
+    print(f"[24] phase time {time.perf_counter() - t_phase:.1f} s, and "
+          f"{share:.1f} s of [23]'s group runs (its cases' two solves)")
+    return out
+
+
+def sgd_full_batch(gr, iters: int, step: float):
+    """(last rmse, user_lv, item_lv) of an independent float64 replica of
+    sgd_train_dist's full-batch steps on the rating graph gr, from
+    init_latent(m, 0), (n, 1): per-vertex sums as scipy.sparse products."""
+    import scipy.sparse as sp
+    from gardenia_tpu_torch.solvers.sgd import (DEFAULT_LAMBDA, init_latent,
+                                                num_items)
+    m, n, nnz = gr.m, num_items(gr), gr.nnz
+    src = np.repeat(np.arange(m), np.diff(gr.rowptr))
+    dst = np.asarray(gr.colidx, np.int64)
+    r = np.asarray(gr.weights, np.float64)
+    lam = float(np.float32(DEFAULT_LAMBDA))
+    step = float(np.float32(step))
+    U = init_latent(m, 0).astype(np.float64)
+    It = init_latent(n, 1).astype(np.float64)
+    e = np.arange(nnz)
+    to_u = sp.csr_matrix((np.ones(nnz), (src, e)), shape=(m, nnz))
+    to_i = sp.csr_matrix((np.ones(nnz), (dst, e)), shape=(n, nnz))
+    rmse = 0.0
+    for _ in range(iters):
+        us, it_ = U[src], It[dst]
+        delta = r - (us * it_).sum(1)
+        rmse = float(np.sqrt((delta * delta).sum() / nnz))
+        U, It = (U - step * (to_u @ (lam * us - delta[:, None] * it_)),
+                 It - step * (to_i @ (lam * it_ - delta[:, None] * us)))
+    return rmse, U, It
 
 
 def main() -> None:
@@ -2784,6 +3282,19 @@ def main() -> None:
                for pd in (torch.int8, torch.bfloat16)
                for xd in (torch.bfloat16, torch.float32)}
     print(f"[2] K1 tensor-core kernel: {json.dumps(tc_info)}")
+
+    if "--dist-only" in sys.argv[1:]:
+        # [23] and [24] alone, on their graphs, without the contract's
+        # last lines: a quick first check of the multi-device path
+        g16 = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
+                             symmetrize=True)
+        g = bench.get_graph(MAIN_SCALE)
+        clock(23)
+        _, _, p24 = dist_phase(dev, gpu, g, g16)
+        print(json.dumps({k: p24[k] for k in ("k2_paths", "m1_paths",
+                                              "m1_time", "m1_hand")}))
+        print(f"[24] the run: {time.perf_counter() - RUN_START:.1f} s")
+        return
 
     # ---- 3. K1 against its plain version, on the card ---------------------
     clock(3)
@@ -3649,7 +4160,7 @@ def main() -> None:
 
     # ---- 23. the multi-device path: dist solvers on 1 and 2 ranks --------
     clock(23)
-    dist23, dist_holds = dist_phase(dev, gpu, g, g16)
+    dist23, dist_holds, p24 = dist_phase(dev, gpu, g, g16)
     dist_simt = {p: c["simt"] for p, c in dist23.items() if "simt" in c}
     dist_tc = {p: c["tc"] for p, c in dist23.items() if "tc" in c}
 
@@ -3666,7 +4177,7 @@ def main() -> None:
         # K1 on each rank's shard against its plain version, and the
         # shard's apply against scipy, by dist path
         "dist_holds": {p: h for p, h in dist_holds.items()
-                       if not p.startswith("msbfs")},
+                       if not p.startswith(("msbfs", "bc "))},
         "mismatches": k1_stats["mismatches"],
         "max_abs_err": main_abs, "ms": ms["dense_k1"],
         "plain_ms": ms["dense_plain"],
@@ -3685,7 +4196,7 @@ def main() -> None:
                              f"fsm bench rmat{MAIN_SCALE}":
                              fsm22["launches"], **dist_tc},
         "dist_holds": {p: h for p, h in dist_holds.items()
-                       if p.startswith("msbfs")},
+                       if p.startswith(("msbfs", "bc "))},
         "mismatches": kb_stats["mismatches"] + fsm22["mismatches"],
         "max_abs_err": kb_stats["max_abs_err"],
         "ms": kb_ms["f32"]["kernel"], "plain_ms": kb_ms["f32"]["plain"],
@@ -3720,13 +4231,30 @@ def main() -> None:
         "library_ms": None}, {
         "name": "dense_panel_minselect", "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_REPLACES,
-        "launches": k2_bench + k2_uniform,
+        "launches": k2_bench + k2_uniform + sum(p24["k2_paths"].values()),
         "launches_by_path": {f"cc bench rmat{MAIN_SCALE}": k2_bench,
-                             f"cc_sv uniform{CC_UNIFORM_SCALE}": k2_uniform},
+                             f"cc_sv uniform{CC_UNIFORM_SCALE}": k2_uniform,
+                             **p24["k2_paths"]},
+        # every K2 call of the dist CC paths' first solves against the
+        # plain version, exactly, by path
+        "dist_holds": p24["k2_holds"],
         "mismatches": k2_stats["mismatches"],
         "max_abs_err": k2_stats["max_abs_err"], "ms": cc_ms["dense_k2"],
         "plain_ms": cc_ms["dense_plain"],
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+        "library_ms": None}, {
+        # M1 at the one-rank R-MAT-20 SSSP shard (its whole dense part);
+        # launches are the dist SSSP paths' second solves
+        "name": "dense_panel_minplus", "route": "cuda",
+        "source": K2_SOURCE, "replaces": M1_REPLACES,
+        "launches": sum(p24["m1_paths"].values()),
+        "launches_by_path": p24["m1_paths"],
+        "dist_holds": p24["m1_holds"], "hand_cases": p24["m1_hand"],
+        "mismatches": p24["m1_hand"]["mismatches"],
+        "max_abs_err": p24["m1_hand"]["max_abs_err"],
+        **{k: p24["m1_time"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "k2_ms_same_panels",
+            "bytes", "nonzero_cells", "cells")},
         "library_ms": None}]
     for name, (_, source, replaces) in TC_KERNELS.items():
         b_ms, b_by = bound(tc_ms[name]["bytes"], tc_ms[name]["ops"])
@@ -3743,7 +4271,7 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     entries.append(v1_entry)
     entries.append(q1_entry)
-    print(f"[23] the whole run: {time.perf_counter() - RUN_START:.1f} s")
+    print(f"[24] the whole run: {time.perf_counter() - RUN_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// K2: dense-panel min-select for the hybrid block-sparse layout, on Hopper.
+// K2: dense-panel min-select for the hybrid block-sparse layout, on Hopper,
+// and M1, its min-plus twin.
 //
 // Replaces gardenia_tpu/ops/pallas_bsr.py::dense_panel_minselect.  For
 // each row slot r of one width bucket:
@@ -31,6 +32,21 @@
 // shuffles.  A row is whole in one group, so every output element has
 // one writer and no atomics are needed.  Rows that repeat across slots
 // (split rows) are combined by the caller's amin scatter.
+//
+// M1 (gdn_dense_panel_minplus) replaces the XLA masked reduce-min of
+// gardenia_tpu/ops/bsr.py::spmv_hybrid_min_plus (bsr.py:488-538), the
+// SSSP relaxation over the weighted panels:
+//
+//   out[r, i] = min(sentinel, min over j with panel[r, i, j] != 0 of
+//                             x2d[src[r, j / 128], j % 128]
+//                             + int(panel[r, i, j]) * scale)
+//
+// with int32 arithmetic that wraps as the XLA/torch int32 add does, and
+// int(cell) the cell truncated toward zero (astype(int32)).  The kernel is
+// K2's, templated on the reduce's operand: the same panel stream, staging
+// and row groups, and for each nonzero cell the cell's weight is taken
+// from the 16 bytes already in registers.  Same bound as K2: the panel
+// bytes once over device-memory bandwidth.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,11 +96,41 @@ __device__ __forceinline__ unsigned nonzero_mask(const int4 v, float) {
 template <typename T> struct Elem { static constexpr int bytes = sizeof(T); };
 template <> struct Elem<bf16_tag> { static constexpr int bytes = 2; };
 
-template <typename T>
+// the 32-bit word of the 16 bytes that holds byte offset `byte`
+__device__ __forceinline__ unsigned word_at(const int4 v, int byte) {
+  const int q = byte >> 2;
+  return static_cast<unsigned>(q < 2 ? (q == 0 ? v.x : v.y)
+                                     : (q == 2 ? v.z : v.w));
+}
+
+// element k of the 16 bytes as an int32, truncated toward zero
+__device__ __forceinline__ int cell_int(const int4 v, int k, int8_t) {
+  return static_cast<int>(static_cast<int8_t>(
+      (word_at(v, k) >> (8 * (k & 3))) & 0xffu));
+}
+
+__device__ __forceinline__ int cell_int(const int4 v, int k, bf16_tag) {
+  const unsigned bits = (word_at(v, 2 * k) >> (16 * (k & 1))) & 0xffffu;
+  return __float2int_rz(__uint_as_float(bits << 16));
+}
+
+__device__ __forceinline__ int cell_int(const int4 v, int k, float) {
+  return __float2int_rz(__uint_as_float(word_at(v, 4 * k)));
+}
+
+// x + w * scale in int32, wrapping on overflow as an int32 tensor add does
+__device__ __forceinline__ int wrap_add(int x, int w, int scale) {
+  return static_cast<int>(static_cast<unsigned>(x) +
+                          static_cast<unsigned>(w) *
+                              static_cast<unsigned>(scale));
+}
+
+// PLUS false: K2 (min of labels); true: M1 (min of x + weight * scale)
+template <typename T, bool PLUS>
 __global__ void __launch_bounds__(THREADS)
 minselect_kernel(const int4* __restrict__ panel, const int* __restrict__ src,
                  const int* __restrict__ x2d, int* __restrict__ out, int W,
-                 int sentinel) {
+                 int sentinel, int scale) {
   constexpr int E = 16 / Elem<T>::bytes;     // panel elements per 16 bytes
   // label of column col = c*E + k sits at xs[k*row_chunks + c], so the
   // lanes of a group, reading chunks c, c+1, ..., hit neighbouring banks
@@ -113,11 +159,16 @@ minselect_kernel(const int4* __restrict__ panel, const int* __restrict__ src,
     const int4* p = slot + static_cast<size_t>(row) * row_chunks;
     int acc = sentinel;
     for (int c = lane; c < row_chunks; c += g) {
-      unsigned m = nonzero_mask(__ldcs(p + c), T());
+      const int4 v = __ldcs(p + c);
+      unsigned m = nonzero_mask(v, T());
       while (m) {
         const int k = __ffs(m) - 1;
         m &= m - 1;
-        acc = min(acc, xs[k * row_chunks + c]);
+        const int x = xs[k * row_chunks + c];
+        if constexpr (PLUS)
+          acc = min(acc, wrap_add(x, cell_int(v, k, T()), scale));
+        else
+          acc = min(acc, x);
       }
     }
     for (int off = g / 2; off > 0; off >>= 1)
@@ -126,11 +177,33 @@ minselect_kernel(const int4* __restrict__ panel, const int* __restrict__ src,
   }
 }
 
-template <typename T>
+template <typename T, bool PLUS>
 void launch(const void* panel, const int* src, const int* x2d, int* out,
-            long long R, int W, int sentinel, cudaStream_t stream) {
-  minselect_kernel<T><<<static_cast<unsigned>(R), THREADS, 0, stream>>>(
-      static_cast<const int4*>(panel), src, x2d, out, W, sentinel);
+            long long R, int W, int sentinel, int scale, cudaStream_t stream) {
+  minselect_kernel<T, PLUS><<<static_cast<unsigned>(R), THREADS, 0, stream>>>(
+      static_cast<const int4*>(panel), src, x2d, out, W, sentinel, scale);
+}
+
+template <bool PLUS>
+int dispatch(const void* panel, int dtype, const void* src, const void* x2d,
+             void* out, long long R, int W, int sentinel, int scale,
+             void* stream) {
+  if (R <= 0) return 0;
+  if (W < 1 || W > MAX_W) return static_cast<int>(cudaErrorInvalidValue);
+  const int* s = static_cast<const int*>(src);
+  const int* x = static_cast<const int*>(x2d);
+  int* y = static_cast<int*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: launch<int8_t, PLUS>(panel, s, x, y, R, W, sentinel, scale, st);
+      break;
+    case 1: launch<bf16_tag, PLUS>(panel, s, x, y, R, W, sentinel, scale, st);
+      break;
+    case 2: launch<float, PLUS>(panel, s, x, y, R, W, sentinel, scale, st);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -143,19 +216,17 @@ extern "C" {
 int gdn_dense_panel_minselect(const void* panel, int dtype, const void* src,
                               const void* x2d, void* out, long long R, int W,
                               int sentinel, void* stream) {
-  if (R <= 0) return 0;
-  if (W < 1 || W > MAX_W) return static_cast<int>(cudaErrorInvalidValue);
-  const int* s = static_cast<const int*>(src);
-  const int* x = static_cast<const int*>(x2d);
-  int* y = static_cast<int*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: launch<int8_t>(panel, s, x, y, R, W, sentinel, st); break;
-    case 1: launch<bf16_tag>(panel, s, x, y, R, W, sentinel, st); break;
-    case 2: launch<float>(panel, s, x, y, R, W, sentinel, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(panel, dtype, src, x2d, out, R, W, sentinel, 0,
+                         stream);
+}
+
+// M1: as gdn_dense_panel_minselect, with each nonzero cell's weight
+// (times scale) added to its label.
+int gdn_dense_panel_minplus(const void* panel, int dtype, const void* src,
+                            const void* x2d, void* out, long long R, int W,
+                            int sentinel, int scale, void* stream) {
+  return dispatch<true>(panel, dtype, src, x2d, out, R, W, sentinel, scale,
+                        stream);
 }
 
 }  // extern "C"

@@ -130,6 +130,10 @@ def lib() -> ctypes.CDLL:
             so.gdn_dense_panel_minselect.argtypes = [
                 vp, ci, vp, vp, vp, ll, ci, ci, vp]
             so.gdn_dense_panel_minselect.restype = ci
+            # (panel, dtype, src, x2d, out, R, W, sentinel, scale, stream)
+            so.gdn_dense_panel_minplus.argtypes = [
+                vp, ci, vp, vp, vp, ll, ci, ci, ci, vp]
+            so.gdn_dense_panel_minplus.restype = ci
             # (rows, first index, second index, out, n, W|wpad, stream)
             for name in ("gdn_tc_rot_count", "gdn_tc_merge_count",
                          "gdn_tc_bitmap_count"):

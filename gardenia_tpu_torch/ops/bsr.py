@@ -26,7 +26,9 @@ MXU workarounds and are not ported: the operand's dtype states the
 precision (f32: f32-faithful products; bf16: one bf16 pass).
 `spmv_hybrid_min_select` (CC's label sweep) runs each panel array through
 kernel K2 (ops/minselect.py) and the remainder through spmv_ell's
-min-select.
+min-select; `spmv_hybrid_min_plus` (SSSP's relaxation over the weighted
+layout) runs them through kernel M1, K2's min-plus twin, and the
+remainder through spmv_ell's min-plus.
 """
 
 from __future__ import annotations
@@ -385,4 +387,52 @@ def spmv_hybrid_min_select(hyb: HybridMatrix, x: torch.Tensor, *,
     if hyb.rem.buckets:
         y = spmv_ell(hyb.rem, x, semiring=I32_MIN_SELECT2,
                      num_rows=num_rows, init=y)
+    return y
+
+
+def spmv_hybrid_min_plus(hyb: HybridMatrix, x: torch.Tensor, *,
+                         num_rows: int, sentinel: int) -> torch.Tensor:
+    """y[i] = min over A[i,j] != 0 of (x[j] + w[i,j]), int32 (the SSSP
+    relaxation, reference src/sssp/omp_base.cc:45-58) over the WEIGHTED
+    hybrid layout; rows with no neighbours, and rows whose least candidate
+    exceeds it, get `sentinel`.  Each panel array goes through M1, whose
+    per-slot rows are combined by an amin scatter; the remainder through
+    spmv_ell with I32_MIN_PLUS, or, where the weights were factored into
+    hyb.scale (uniform weights, no remainder values), min-select plus the
+    scale on the rows that have remainder neighbours.
+
+    Contract, as the JAX function's: edges deduped (dense cells sum
+    duplicates) and weights positive integers (a zero cell is no edge);
+    the constant-value scale must be integral."""
+    from gardenia_tpu_torch.ops.semiring import I32_MIN_PLUS, I32_MIN_SELECT2
+    from gardenia_tpu_torch.ops.spmv import spmv_ell
+
+    num_cols = int(x.shape[0])
+    qx = (num_cols + LANES - 1) // LANES
+    mb = (num_rows + LANES - 1) // LANES
+    scale = int(round(hyb.scale))
+    assert scale == hyb.scale, \
+        "min-plus needs integral weights (fractional scale factored)"
+    x = x.to(torch.int32)
+    x2d = x.new_full((qx * LANES,), sentinel)
+    x2d[:num_cols] = x
+    x2d = x2d.view(qx, LANES)
+    y2d = x.new_full((mb, LANES), sentinel)
+    for p in hyb.dense:
+        part = _minselect.dense_panel_minplus(p.panel, p.src, x2d, sentinel,
+                                              scale)
+        y2d.scatter_reduce_(0, p.rows.long()[:, None].expand_as(part), part,
+                            "amin")
+    y = y2d.view(-1)[:num_rows]
+    if hyb.rem.buckets:
+        if hyb.rem.buckets[0].vals is not None:
+            y = spmv_ell(hyb.rem, x, semiring=I32_MIN_PLUS,
+                         num_rows=num_rows, init=y)
+        else:
+            # scale-factored uniform weights: min_j (x[j] + c) =
+            # min_j x[j] + c on the rows with remainder neighbours
+            ysel = spmv_ell(hyb.rem, x, semiring=I32_MIN_SELECT2,
+                            num_rows=num_rows)
+            none = ysel == I32_MIN_SELECT2.zero
+            y = torch.minimum(y, torch.where(none, sentinel, ysel + scale))
     return y

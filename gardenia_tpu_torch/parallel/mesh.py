@@ -38,8 +38,9 @@ import pickle
 import queue
 import socket
 import traceback
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -64,6 +65,8 @@ class Mesh:
         default_factory=lambda: {"all_gather": 0, "all_reduce": 0})
     bytes: dict = dataclasses.field(
         default_factory=lambda: {"all_gather": 0, "all_reduce": 0})
+    # the (r, c) mesh over this group, once make_mesh2d has made it
+    mesh2d: Optional["Mesh2D"] = dataclasses.field(default=None, repr=False)
 
     def describe(self) -> str:
         return describe(self.size, self.device.type)
@@ -91,6 +94,81 @@ class Mesh:
         """The ranks' (m, c) t side by side, (m, size * c), in rank order."""
         g = self.all_gather(t[None])                 # (size, m, c)
         return g.permute(1, 0, 2).reshape(t.shape[0], -1)
+
+
+def mesh2d_shape(n: int) -> Tuple[int, int]:
+    """The near-square (r, c) factorisation of n ranks, r <= c
+    (gardenia_tpu/parallel/two_d.py:41-48)."""
+    r = int(np.sqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+@dataclasses.dataclass
+class Mesh2D:
+    """This rank's view of an (r, c) mesh laid over a 1D group: rank
+    i * c + k sits at (i, k), as JAX reshapes its device list.  Axis "r"
+    joins the ranks of one column k (varying i), axis "c" those of one row
+    i.  Collectives over an axis run on its subgroup and are counted, as
+    Mesh counts them, in the world Mesh's calls and bytes."""
+    world: Mesh
+    shape: Tuple[int, int]
+    coords: Tuple[int, int]
+    groups: dict
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.world.calls[kind] += 1
+        self.world.bytes[kind] += nbytes
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The equal-shaped t of the ranks along `axis` concatenated along
+        dim 0 in their order on the axis (all_gather(..., tiled=True))."""
+        t = t.contiguous()
+        k = self.shape[0] if axis == "r" else self.shape[1]
+        self._count("all_gather", t.numel() * t.element_size() * k)
+        out = t.new_empty((k * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=self.groups[axis])
+        return out
+
+    def all_reduce(self, t: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        """A new tensor: t reduced over the ranks along `axis` by op."""
+        self._count("all_reduce", t.numel() * t.element_size())
+        buf = t.detach().clone()
+        dist.all_reduce(buf, op=_OPS[op], group=self.groups[axis])
+        return buf
+
+
+def make_mesh2d(n: Optional[int] = None, *, device="cuda",
+                mesh: Optional[Mesh] = None) -> Mesh2D:
+    """This rank's Mesh2D over the running group (or over `mesh`, the 1D
+    Mesh of it): the near-square (r, c) shape of mesh2d_shape, a row and
+    a column subgroup on the world group's backend.  Every rank creates
+    every subgroup in the same order, as torch.distributed requires, so
+    every rank calls this at the same point; the Mesh2D is kept on the 1D
+    Mesh and made once."""
+    if mesh is None:
+        mesh = make_mesh(n, device=device)
+    if getattr(mesh, "mesh2d", None) is not None:
+        return mesh.mesh2d
+    r, c = mesh2d_shape(mesh.size)
+    backend = dist.get_backend()
+    groups = {}
+    for k in range(c):                      # axis "r": one column k
+        grp = dist.new_group([i * c + k for i in range(r)], backend=backend)
+        if mesh.rank % c == k:
+            groups["r"] = grp
+    for i in range(r):                      # axis "c": one row i
+        grp = dist.new_group([i * c + k for k in range(c)], backend=backend)
+        if mesh.rank // c == i:
+            groups["c"] = grp
+    mesh.mesh2d = Mesh2D(mesh, (r, c), divmod(mesh.rank, c), groups)
+    return mesh.mesh2d
 
 
 def _env_int(name: str, default: Optional[int] = None) -> int:

@@ -206,20 +206,80 @@ def ell_shard(g, n_shards: int, s: int, *, reverse: bool = False,
 
 
 def hybrid_shard(g, n_shards: int, s: int, *, reverse: bool = False,
-                 balance: str = "edges",
+                 weighted: bool = False, ax=None, balance: str = "edges",
                  dense_threshold: int = 16) -> Shard:
-    """Shard s of partition_hybrid_1d, alone: its unweighted hybrid
-    layout (CPU tensors) over the padded-global columns.  Pass a
-    degree-relabelled graph for block locality (core/relabel.py)."""
-    rp, ci, _ = _direction(g, reverse, False, None)
+    """Shard s of the 1D hybrid partition, alone: its hybrid layout (CPU
+    tensors) over the padded-global columns.  Pass a degree-relabelled
+    graph for block locality (core/relabel.py).
+
+    Unweighted (the default), it is shard s of partition_hybrid_1d.  With
+    weighted= or ax= (edge values in the chosen direction's CSR order,
+    implying weighted), it is shard s of partition_hybrid_stacked: the
+    constant-value scale and the panel dtype that the stacked form fixes
+    across the shards come from the global weights (stacked_plan), so the
+    rank builds its own shard only."""
+    rp, ci, w = _direction(g, reverse, weighted, ax)
     bounds = shard_bounds(rp, n_shards, balance)
     mb = _hybrid_mb(bounds)
-    sub_rp, sub_ci, _ = _shard_csr(rp, ci, None, bounds, mb, s)
-    hyb = build_hybrid(sub_rp, sub_ci, None, num_cols=n_shards * mb,
-                       dense_threshold=dense_threshold)
+    factor, dt = True, None
+    if w is not None:
+        factor, dt = stacked_plan(rp, ci, w, bounds, mb, dense_threshold)
+    sub_rp, sub_ci, sub_w = _shard_csr(rp, ci, w, bounds, mb, s)
+    hyb = build_hybrid(sub_rp, sub_ci, sub_w, num_cols=n_shards * mb,
+                       dense_threshold=dense_threshold, factor_scale=factor)
+    if dt is not None:
+        hyb.dense = tuple(DensePanel(p.panel.to(dt), p.src, p.rows, p.width)
+                          for p in hyb.dense)
     lo, hi = int(bounds[s]), int(bounds[s + 1])
     _drop_row_sentinels(hyb.rem, hi - lo, mb)
     return Shard(hyb, lo, hi, RowRanges(bounds, mb))
+
+
+def stacked_plan(rp, ci, w, bounds, mb: int,
+                 dense_threshold: int) -> Tuple[bool, torch.dtype]:
+    """(factor_scale, panel dtype) that partition_hybrid_stacked fixes
+    across the shards of weighted rows: factor_scale is False where the
+    shards' constant-value scales differ, and the dtype is the widest of
+    the shards' panels, found from the global edges without building any
+    panel.  A cell's value is the sum of its edges' weights (1 for an
+    edge whose shard's weights were factored); the dtype rule of
+    build_hybrid is monotone in its cells, so the widest shard's dtype is
+    the rule applied to every shard's dense cells at once."""
+    n = len(bounds) - 1
+    cuts = rp[bounds]
+    vals = np.array(w, np.float32)         # the shards' weights, as built
+    segs = [vals[cuts[s]:cuts[s + 1]] for s in range(n)]
+    # build_hybrid(factor_scale=True) factors a shard whose weights all
+    # equal one nonzero value, and stores its counts
+    uniform = [len(x) > 0 and x[0] != 0 and bool(np.all(x == x[0]))
+               for x in segs]
+    factor = len({float(x[0]) if u else 1.0
+                  for x, u in zip(segs, uniform)}) == 1
+    if factor:
+        for x, u in zip(segs, uniform):
+            if u:
+                x[:] = 1.0
+    rows = np.repeat(np.arange(len(rp) - 1, dtype=np.int64), np.diff(rp))
+    prow = _remap(rows, bounds, mb)
+    pcol = _remap(np.asarray(ci, np.int64), bounds, mb)
+    sb_span = (n * mb >> 7) + 2
+    blk = (prow >> 7) * sb_span + (pcol >> 7)
+    _, inv, cnt = np.unique(blk, return_inverse=True, return_counts=True)
+    dense = cnt[inv] >= dense_threshold
+    if not dense.any():
+        return factor, torch.int8
+    # each cell's sum in f32, its edges in CSR order, as build_hybrid sums
+    key = prow[dense] * (n * mb) + pcol[dense]
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    sums = np.add.reduceat(vals[dense][order], starts)
+    integral = bool((sums == np.round(sums)).all())
+    if integral and sums.max() <= 127 and sums.min() >= -128:
+        return factor, torch.int8
+    if integral and np.abs(sums).max() <= 256:
+        return factor, torch.bfloat16
+    return factor, torch.float32
 
 
 def partition_ell_1d(g, n_shards: int, *, reverse: bool = False,

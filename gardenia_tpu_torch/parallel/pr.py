@@ -29,18 +29,27 @@ from gardenia_tpu_torch.parallel import partition
 from gardenia_tpu_torch.solvers.pr import EPSILON, KDAMP, MAX_ITER, PRResult
 
 
-def shard_of(g, mesh, layout: str, balance: str):
-    """This rank's Shard of g's in-edges (partition.hybrid_shard or
-    ell_shard: the pull sweeps read them) with its matrix on the rank's
-    device, cached on g."""
+def shard_of(g, mesh, layout: str, balance: str, *, reverse: bool = True,
+             weighted: bool = False):
+    """This rank's Shard of g's in-edges (reverse, the pull sweeps'; the
+    out-edges with reverse=False), from partition.hybrid_shard or
+    ell_shard, weighted as those take it, with its matrix on the rank's
+    device, cached on g.  A symmetric graph's two directions are one CSR,
+    so they share one shard."""
+    reverse = reverse or g.symmetric
+
     def mk():
         build = partition.hybrid_shard if layout == "hybrid" else \
             partition.ell_shard
-        sh = build(g, mesh.size, mesh.rank, reverse=True, balance=balance)
+        sh = build(g, mesh.size, mesh.rank, reverse=reverse,
+                   weighted=weighted, balance=balance)
         sh.mat = sh.mat.to(mesh.device)
         return sh
-    return g._dev(("torch", "shard1d", layout, balance, mesh.size,
-                   mesh.rank, str(mesh.device)), mk)
+    key = ("torch", "shard1d", layout, balance, mesh.size, mesh.rank,
+           str(mesh.device))
+    if not reverse or weighted:
+        key += (reverse, weighted)
+    return g._dev(key, mk)
 
 
 def local_apply(sh, layout: str):

@@ -28,13 +28,15 @@ device event's start to the last one's end, the idle share of that span
 (1 - busy / span), and busy ms and launch count by kernel name.
 `--trace` also writes the Chrome trace.  Needs a CUDA card.
 
-`--ranks N` (pr, bfs, msbfs, tc, vc, scc) profiles the multi-device
-solver of gardenia_tpu_torch.parallel instead, on N local ranks on the
-card(s) at hand (parallel/mesh.py's plan: gloo when the ranks outnumber
-the cards), each rank profiling its own process: per rank the same
-numbers, K1's busy ms and share (the kernels named panel_matmul), and
-the card's busy share at most (the ranks' busy summed over the longest
-span: their events may overlap).
+`--ranks N` (pr, bfs, msbfs, tc, vc, scc, cc, sssp) profiles the
+multi-device solver of gardenia_tpu_torch.parallel instead, on N local
+ranks on the card(s) at hand (parallel/mesh.py's plan: gloo when the
+ranks outnumber the cards), each rank profiling its own process: per rank
+the same numbers, the panel kernels' busy ms and share (K1, K2 and M1:
+the kernels named panel_matmul or minselect), and the card's busy share
+at most (the ranks' busy summed over the longest span: their events may
+overlap).  sssp runs there on the R-MAT graph, unweighted, from its
+vertex of highest degree; cc with the hybrid layout.
 """
 
 from __future__ import annotations
@@ -120,21 +122,24 @@ def solver(kernel: str, g):
     return tc_solver
 
 
-DIST_KERNELS = ("pr", "bfs", "msbfs", "tc", "vc", "scc")
+DIST_KERNELS = ("pr", "bfs", "msbfs", "tc", "vc", "scc", "cc", "sssp")
 
 
 def dist_solver(kernel: str, g):
-    """fn(g, mesh=) running the multi-device solve of `kernel` on g (bfs:
-    from the vertex of highest degree; msbfs: sources 0..127)."""
+    """fn(g, mesh=) running the multi-device solve of `kernel` on g (bfs
+    and sssp: from the vertex of highest degree; msbfs: sources
+    0..127)."""
     import numpy as np
     from gardenia_tpu_torch import parallel as P
-    if kernel == "bfs":
-        return partial(P.bfs_solver_dist, source=int(np.argmax(g.degrees)))
+    if kernel in ("bfs", "sssp"):
+        fn = P.bfs_solver_dist if kernel == "bfs" else P.sssp_solver_dist
+        return partial(fn, source=int(np.argmax(g.degrees)))
     if kernel == "msbfs":
         from gardenia_tpu_torch.bench import SOURCES
         return partial(P.bfs_multi_source_dist, sources=np.arange(SOURCES))
     return {"pr": P.pr_solver_dist, "tc": P.tc_solver_dist,
-            "vc": P.vc_solver_dist, "scc": P.scc_solver_dist}[kernel]
+            "vc": P.vc_solver_dist, "scc": P.scc_solver_dist,
+            "cc": P.cc_solver_dist}[kernel]
 
 
 def profiled(solve, solves: int) -> dict:
@@ -188,7 +193,9 @@ def traced_rank(mesh, kernel: str, g, solves: int) -> dict:
 def dist_main(args) -> None:
     from gardenia_tpu_torch.core.graph import from_csr_of
     from gardenia_tpu_torch.parallel import run_on_ranks
-    g = from_csr_of(bench_graph(args.kernel, args.graph, args.scale))
+    # the dist SSSP runs on the R-MAT graph, not on the bench's grid
+    g = from_csr_of(bench_graph("pr" if args.kernel == "sssp" else
+                                args.kernel, args.graph, args.scale))
     ranks = run_on_ranks(traced_rank, args.ranks, "cuda", args.kernel, g,
                          args.solves)
     print(f"{args.kernel} dist {args.graph}{args.scale}: {ranks[0]['mesh']}")
@@ -197,14 +204,15 @@ def dist_main(args) -> None:
         if not res["events"]:
             sys.exit(f"profile_solve: rank {r}'s trace holds no device time")
         busy, span, by_name = summary(res["events"])
-        k1 = sum(ms for name, (_, ms) in by_name.items()
-                 if "panel_matmul" in name)
+        panels = sum(ms for name, (_, ms) in by_name.items()
+                     if "panel_matmul" in name or "minselect" in name)
         sums += busy
         spans.append(span)
         print(f"rank {r}: first solve {res['first_s']} s, untraced solves ms "
               f"{res['walls_ms']}; {len(res['events'])} device events over "
               f"{args.solves} solves, busy {busy} ms, span {span} ms, idle "
-              f"share {1 - busy / span}; K1 {k1} ms, {k1 / busy} of busy")
+              f"share {1 - busy / span}; panel kernels (K1, K2, M1) "
+              f"{panels} ms, {panels / busy} of busy")
         for name, (n, ms) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:12]:
             print(f"  {ms:10.3f} ms {n:5d}x {name[:110]}")

@@ -83,9 +83,16 @@ def bc_batched(g, sources, *, layout: str = "auto",
     Scores are summed over the sources and normalized by the max.  Takes
     the place of the reference's sequential num_iters loop
     (src/bc/omp_base.cc:69)."""
+    scores, levels = batched_sums(g, sources, layout=layout,
+                                  dev=resolve_device(device))
+    return BCResult(_normalized(scores), levels)
+
+
+def batched_sums(g, sources, *, layout: str, dev):
+    """(f32[m] dependency sums over the sources, original order; forward
+    levels) of bc_batched, before the normalization."""
     from gardenia_tpu_torch.solvers.bfs import _resolve_layout
     layout = _resolve_layout(layout)
-    dev = resolve_device(device)
     m = g.m
     sources = torch.from_numpy(np.asarray(sources, np.int64)).to(dev)
     S = sources.shape[0]
@@ -120,7 +127,7 @@ def bc_batched(g, sources, *, layout: str = "auto",
     scores = delta.sum(dim=1)
     if new_of_old is not None:
         scores = scores[new_of_old]
-    return BCResult(_normalized(scores), levels)
+    return scores, levels
 
 
 def bc_solver(g, source: int = 0, *, num_sources: int = 1,

@@ -264,8 +264,11 @@ def test_entry_step_matches_jax():
 def test_dryrun_multichip_on_two_cpu_ranks(capsys):
     from gardenia_tpu_torch.entry import dryrun_multichip
     line = dryrun_multichip(2, device="cpu")
-    assert line.startswith("dryrun_multichip OK: 2 ranks (gloo, cpu x2), "
-                           "kernels pr+bfs+msbfs-dp+tc+vc+scc, pr 3 iters,")
+    assert line.startswith(
+        "dryrun_multichip OK: 2 ranks (gloo, cpu x2) (1x2 2D), kernels "
+        "sgd+pr+bfs+sssp+cc+bc+spmv+msbfs-dp+vc+symgs+mst+tc2d+scc2d, "
+        "sgd rmse=")
+    assert ", pr 3 iters, tc=" in line
     assert capsys.readouterr().out.strip() == line
 
 
