@@ -3266,6 +3266,9 @@ def main() -> None:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"device_count {torch.cuda.device_count()}")
     print(f"[1] nvcc: {nvcc_release[0].strip() if nvcc_release else '?'}")
+    # the host, whose speed moves the host-bound bench entries
+    from gardenia_tpu_torch.tools.bench_ab import host_lines
+    print("[1] host: " + "; ".join(host_lines("cpu")))
 
     # ---- 2. build ---------------------------------------------------------
     clock(2)
@@ -3397,6 +3400,21 @@ def main() -> None:
           f"{main_abs:.3e} (limit {K1_REL_LIMIT} x max|y| per panel array); "
           f"{k1_stats['mismatches']} of {k1_stats['arrays_checked']} panel "
           f"arrays checked in all over the limit")
+
+    # the ELL remainder's padding, and the bytes bound of one f32 ELL
+    # apply over it (each slot's column id, the operand and the output,
+    # each once): the yardstick of the remainder's spmv_ell
+    from gardenia_tpu_torch.ops.ell import ell_stats
+    from gardenia_tpu_torch.ops.spmv import spmv_ell
+    rem = ell_stats(hyb.rem)
+    rem_edges = int(hyb.rem_dst.shape[0])
+    ell_bytes = 4 * rem["slots"] + 4 * g.n + 4 * g.m
+    ell_bound, ell_by = bound(ell_bytes, rem["slots"])
+    ell_ms = cuda_ms(lambda: spmv_ell(hyb.rem, x, num_rows=g.m))
+    print(f"[4] ELL remainder: ell_stats {json.dumps(rem)}, {rem_edges} "
+          f"edges, padding {rem['slots'] / rem_edges:.4f} slots an "
+          f"edge; one f32 apply's bound {ell_bytes / 1e6:.3f} MB -> "
+          f"{ell_bound:.4f} ms ({ell_by}), spmv_ell alone {ell_ms:.3f} ms")
 
     def dense(fn):
         return lambda: [fn(p.panel, p.src, x3d, 1) for p in hyb.dense]

@@ -60,4 +60,8 @@ def resolve_device(name="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "__version__"]
+# the JAX package's top-level surface: the host graph and its constants
+from gardenia_tpu_torch.core.graph import Graph, load_graph
+from gardenia_tpu_torch.core import types
+
+__all__ = ["Graph", "load_graph", "types", "resolve_device", "__version__"]

@@ -104,6 +104,14 @@ def build_ell(rowptr: np.ndarray,
     return EllMatrix(buckets=tuple(buckets))
 
 
+def ell_stats(ell: EllMatrix) -> dict:
+    """Padding efficiency diagnostics."""
+    slots = sum(b.cols.numel() for b in ell.buckets)
+    rows = sum(b.row_ids.numel() for b in ell.buckets)
+    return {"buckets": len(ell.buckets), "virtual_rows": rows,
+            "slots": slots}
+
+
 def from_jax_ell(ell) -> EllMatrix:
     """Carry a gardenia_tpu EllMatrix (JAX or numpy arrays) across as CPU
     tensors, through numpy."""

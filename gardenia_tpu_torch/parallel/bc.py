@@ -19,8 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gardenia_tpu_torch.core import types as T
 from gardenia_tpu_torch.solvers.bc import (BCResult, _normalized,
                                            batched_sums)
+
+INF = np.int32(T.MYINFINITY)
 
 
 def bc_batched_dist(g, sources, *, mesh, layout: str = "auto") -> BCResult:

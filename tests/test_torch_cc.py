@@ -305,7 +305,10 @@ def test_cc_uniform14_dense_round_on_panels(monkeypatch):
 
 def test_cc_edge_cases():
     """No edges: every vertex its own component, in both variants; an
-    unknown layout or variant raises."""
+    unknown layout or variant raises.  cc_sv is held to the JAX package,
+    cc_afforest only to np.arange: the JAX cc_afforest raises a TypeError
+    on a graph with no edges (gardenia_tpu/solvers/cc.py:317 gathers from
+    an empty colidx), which the port guards against."""
     g = Graph(np.zeros(6, np.int64), np.zeros(0, np.int32), num_cols=5,
               symmetric=True)
     tg = from_csr_of(g)

@@ -18,6 +18,7 @@ from gardenia_tpu.core.relabel import degree_relabel
 from gardenia_tpu.ops import bsr as jbsr
 from gardenia_tpu.ops import semiring as jsr
 from gardenia_tpu.ops.ell import build_ell as jbuild_ell
+from gardenia_tpu.ops.ell import ell_stats as jell_stats
 from gardenia_tpu.ops.pallas_bsr import dense_panel_matmul as jpanel
 from gardenia_tpu.ops.spmv import spmv_ell as jspmv_ell
 from gardenia_tpu.verify import oracles
@@ -27,6 +28,8 @@ from gardenia_tpu_torch.ops import bsr as tbsr
 from gardenia_tpu_torch.ops import panel as tpanel
 from gardenia_tpu_torch.ops import semiring as tsr
 from gardenia_tpu_torch.ops.ell import build_ell as tbuild_ell
+from gardenia_tpu_torch.ops.ell import ell_stats as tell_stats
+from gardenia_tpu_torch.ops.ell import from_jax_ell
 from gardenia_tpu_torch.ops.spmv import spmv_ell as tspmv_ell
 
 
@@ -126,6 +129,58 @@ def test_build_ell_weighted_matches_jax():
     t = tbuild_ell(g.rowptr, g.colidx, w, num_cols=g.n, width_cap=16)
     j = jbuild_ell(g.rowptr, g.colidx, w, num_cols=g.n, width_cap=16)
     _assert_same_ell(t, j)
+
+
+def _ell_input(graph):
+    """(rowptr, colidx, weights or None, num_cols) of an ell_stats case."""
+    if graph == "edgeless":
+        return np.zeros(18, np.int64), np.zeros(0, np.int32), None, 17
+    if graph.startswith("rmat10"):
+        g = generate_graph("rmat", scale=10, degree=16, symmetrize=True)
+    else:
+        g = random_graph(m=300, avg_deg=7, seed=5, weighted=True)
+    w = None
+    if graph.endswith("_w"):
+        w = (np.asarray(g.weights, np.float32) if g.weights is not None
+             else np.random.default_rng(6).random(g.nnz).astype(np.float32))
+    return g.rowptr, g.colidx, w, g.n
+
+
+@pytest.mark.parametrize("opts", [
+    {}, {"width_cap": 16}, {"width_cap": 16, "min_width": 1, "lane_align": 1},
+    {"min_width": 4, "lane_align": 1}], ids=["defaults", "cap16",
+                                             "cap16_align1", "min4_align1"])
+@pytest.mark.parametrize("graph", ["random", "random_w", "rmat10", "rmat10_w",
+                                   "edgeless"])
+def test_ell_stats_matches_jax(graph, opts):
+    """ell_stats of the port's build_ell equals the JAX function's on the
+    JAX build of the same CSR, pad rows up to lane_align included; the
+    R-MAT graph's hubs are split into several virtual rows at cap 16."""
+    rowptr, colidx, w, n = _ell_input(graph)
+    t = tbuild_ell(rowptr, colidx, w, num_cols=n, **opts)
+    j = jbuild_ell(rowptr, colidx, w, num_cols=n, **opts)
+    want = jell_stats(j)
+    assert tell_stats(t) == want
+    assert tell_stats(t.to("cpu")) == want
+    assert tell_stats(from_jax_ell(j)) == want
+    assert all(type(v) is int for v in tell_stats(t).values())
+    if graph == "edgeless":
+        assert want == {"buckets": 0, "virtual_rows": 0, "slots": 0}
+    elif graph.startswith("rmat10") and opts.get("width_cap") == 16:
+        deg = np.diff(rowptr)
+        split = int((-(-deg // 16)).sum())       # virtual rows before pads
+        assert split > int((deg > 0).sum())      # the hubs were split
+        if opts.get("lane_align") == 1:
+            assert want["virtual_rows"] == split
+        else:
+            assert want["virtual_rows"] > split
+
+
+def test_parallel_bc_inf_matches_jax():
+    from gardenia_tpu.parallel import bc as jpbc
+    from gardenia_tpu_torch.parallel import bc as tpbc
+    assert tpbc.INF == jpbc.INF
+    assert tpbc.INF.dtype == jpbc.INF.dtype == np.int32
 
 
 def test_from_jax_hybrid_matches_port_build():
