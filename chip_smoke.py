@@ -393,6 +393,22 @@ def run(cmd) -> str:
     return proc.stdout.strip()
 
 
+# lscpu's fields that name the CPU (a virtual machine may report its model
+# name as unknown and still give the family, model and stepping)
+CPU_FIELDS = ("Model name", "Vendor ID", "CPU family", "Model", "Stepping",
+              "BogoMIPS", "L3 cache")
+
+
+def host_lines() -> list:
+    """The host's CPU (lscpu's CPU_FIELDS), cores (nproc) and load
+    (uptime)."""
+    fields = dict(ln.split(":", 1) for ln in run(["lscpu"]).splitlines()
+                  if ":" in ln)
+    cpu = [f"{k}: {fields[k].strip()}" for k in CPU_FIELDS if k in fields]
+    return ["; ".join(cpu) if cpu else "Model name: n/a",
+            f"nproc: {run(['nproc'])}", f"uptime: {run(['uptime'])}"]
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Mean device milliseconds of fn() over reps, by CUDA events."""
     import torch
@@ -3267,8 +3283,7 @@ def main() -> None:
           f"device_count {torch.cuda.device_count()}")
     print(f"[1] nvcc: {nvcc_release[0].strip() if nvcc_release else '?'}")
     # the host, whose speed moves the host-bound bench entries
-    from gardenia_tpu_torch.tools.bench_ab import host_lines
-    print("[1] host: " + "; ".join(host_lines("cpu")))
+    print("[1] host: " + "; ".join(host_lines()))
 
     # ---- 2. build ---------------------------------------------------------
     clock(2)

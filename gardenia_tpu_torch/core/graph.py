@@ -22,6 +22,7 @@ import numpy as np
 
 from gardenia_tpu_torch.core import build, io
 from gardenia_tpu_torch.core import types as T
+from gardenia_tpu_torch.utils.profiler import count, span, spanned
 
 
 class Graph:
@@ -117,9 +118,17 @@ class Graph:
         retain: object(s) whose id() participates in `key` (e.g. a caller
         -supplied weights array).  The cache holds a strong reference so
         the id can never be recycled by a different object while the
-        entry is alive."""
-        if key not in self._device_cache:
-            self._device_cache[key] = (fn(), retain)
+        entry is alive.  While the recorder (utils/profiler) is on, a build
+        is a span layout.<kind> (the key's ("torch", kind, ...), else its
+        first element) and a count of layout_builds, a hit a count of
+        layout_hits."""
+        if key in self._device_cache:
+            count("layout_hits")
+        else:
+            kind = key[1] if key[0] == "torch" else key[0]
+            with span(f"layout.{kind}"):
+                self._device_cache[key] = (fn(), retain)
+            count("layout_builds")
         return self._device_cache[key][0]
 
     def __getstate__(self):
@@ -143,6 +152,7 @@ def from_csr_of(g) -> Graph:
                  symmetric=g.symmetric, vlabels=g.vlabels, elabels=g.elabels)
 
 
+@spanned("graph.from_edges")
 def from_edges(edges: io.EdgeListData, *, symmetrize: bool = False,
                need_reverse: bool = False, remove_self_loops: bool = True,
                dedup: bool = True, keep_weights: bool = True) -> Graph:

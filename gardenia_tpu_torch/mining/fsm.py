@@ -24,7 +24,10 @@ from typing import Optional
 
 import numpy as np
 
+from gardenia_tpu_torch.utils.profiler import spanned
 
+
+@spanned("solve.fsm")
 def fsm_solver(g, k: int = 2, minsup: int = 2,
                labels: Optional[np.ndarray] = None, device="cuda") -> int:
     """Reference entry FSMSolver(m, nnz, k, minsup, row_offsets,

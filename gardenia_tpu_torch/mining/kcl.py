@@ -39,6 +39,7 @@ import torch
 
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.core.views import _key
+from gardenia_tpu_torch.utils.profiler import spanned
 
 # the port's memory budget for one slice of the level expansion, in
 # wedges: its count pass holds a bool a wedge, its fill pass an int64
@@ -186,6 +187,7 @@ def local_dag(g, device):
         torch.from_numpy(np.ascontiguousarray(dag.colidx)).to(device)))
 
 
+@spanned("solve.kcl")
 def kcl_solver(g, k: int, *, force_expand: bool = False,
                device="cuda") -> int:
     """Reference entry KCLSolver(g, k, total, nthreads) (mining/kcl_dfs/

@@ -42,6 +42,7 @@ from gardenia_tpu_torch.mining.kcl import (EMB_WEDGE_LIMIT, _member,
                                            kcl_solver, search_rounds,
                                            wedge_slices)
 from gardenia_tpu_torch.solvers.tc import tc_solver
+from gardenia_tpu_torch.utils.profiler import spanned
 
 LAST_AGGREGATES = None
 
@@ -159,6 +160,7 @@ def codegree_cycle_quads(g, pass_budget: int = 200_000_000) -> int:
     return total // 2
 
 
+@spanned("solve.motif")
 def motif_solver(g, k: int = 3, device="cuda") -> Dict[str, int]:
     """Reference entry MotifSolver (mining/motif_dfs).  g symmetric.
     Returns the induced census dict for k in {3, 4}."""

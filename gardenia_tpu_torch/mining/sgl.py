@@ -27,6 +27,7 @@ import numpy as np
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.mining import kcl, motif, wedgestream
 from gardenia_tpu_torch.mining.pattern import PATTERNS, count_pattern
+from gardenia_tpu_torch.utils.profiler import spanned
 
 LAST_ROUTE = None
 
@@ -50,6 +51,7 @@ def diamond_formula(g, device="cuda") -> int:
     return int((t * (t - 1) // 2).sum()) - 6 * k4
 
 
+@spanned("solve.sgl")
 def sgl_solver(g, pattern: str, *, use_formula: bool = True,
                device="cuda") -> int:
     """Reference entry SglSolver(g, pattern, total) (mining/sgl/sgl.h:15).

@@ -26,6 +26,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from gardenia_tpu_torch.utils import profiler
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -82,6 +84,7 @@ def build(force: bool = False) -> str:
             if f.read().strip() == digest:
                 return LIB_PATH
     nvcc = find_nvcc()
+    profiler.count("kernel_builds")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
     srcs = sources()
@@ -103,11 +106,13 @@ def build(force: bool = False) -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the build and the
+    load are a span kernels.load while the recorder is on)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            so = ctypes.CDLL(build())
+            with profiler.span("kernels.load"):
+                so = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             so.gdn_dense_panel_matmul.argtypes = [
                 vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, vp]

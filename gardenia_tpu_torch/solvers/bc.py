@@ -36,6 +36,7 @@ from gardenia_tpu_torch.core import types as T
 from gardenia_tpu_torch.core import views
 from gardenia_tpu_torch.ops.semiring import F32_PLUS_TIMES, I32_PLUS_TIMES
 from gardenia_tpu_torch.ops.spmv import spmv_ell
+from gardenia_tpu_torch.utils.profiler import spanned
 
 INF = int(T.MYINFINITY)
 
@@ -130,6 +131,7 @@ def batched_sums(g, sources, *, layout: str, dev):
     return scores, levels
 
 
+@spanned("solve.bc")
 def bc_solver(g, source: int = 0, *, num_sources: int = 1,
               device="cuda") -> BCResult:
     """Reference entry BCSolver(g, source, scores) (src/bc/bc.h:37).

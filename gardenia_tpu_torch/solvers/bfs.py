@@ -58,6 +58,7 @@ from gardenia_tpu_torch.ops.frontier import (compact_mask,
                                              frontier_degree_sum)
 from gardenia_tpu_torch.ops.semiring import I32_PLUS_TIMES
 from gardenia_tpu_torch.ops.spmv import spmv_ell
+from gardenia_tpu_torch.utils.profiler import host_read, span, spanned
 
 ALPHA = 15   # reference omp_beamer.cc:111
 BETA = 18
@@ -107,15 +108,16 @@ def bfs_pull(g, source: int, *, layout: str = "auto",
     dev = resolve_device(device)
     _, sweep, new_of_old = _count_sweep(g, layout, dev)
     if new_of_old is not None:
-        source = new_of_old[source]
+        source = host_read(new_of_old[source])
     dist, mask = _start(g.m, source, dev)
     depth = 0
     alive = True
     while alive:
-        mask = (sweep(mask) > 0) & (dist == INF)
-        dist = torch.where(mask, depth + 1, dist)
-        depth += 1
-        alive = bool(mask.any())            # the level's one read
+        with span("bfs.level"):
+            mask = (sweep(mask) > 0) & (dist == INF)
+            dist = torch.where(mask, depth + 1, dist)
+            depth += 1
+            alive = host_read(mask.any())   # the level's one read
     if new_of_old is not None:
         dist = dist[new_of_old]
     return BFSResult(dist, depth)
@@ -185,25 +187,27 @@ def bfs_do(g, source: int, *, device="cuda") -> BFSResult:
             # bottom-up phase (omp_beamer.cc:137-149)
             awake = n_frontier
             while True:
-                iters += 1
-                old_awake = awake
-                dist, mask = _bu_dense_level(sweep, dist, mask, depth)
-                awake, out_edges = torch.stack(
-                    [mask.sum(), frontier_degree_sum(mask, deg)]).tolist()
-                depth += 1
+                with span("bfs.level"):
+                    iters += 1
+                    old_awake = awake
+                    dist, mask = _bu_dense_level(sweep, dist, mask, depth)
+                    awake, out_edges = host_read(torch.stack(
+                        [mask.sum(), frontier_degree_sum(mask, deg)]))
+                    depth += 1
                 if not (awake >= old_awake or awake > m // BETA):
                     break
             n_frontier = awake
             scout = 1
         else:
-            iters += 1
-            edges_to_check -= scout
-            dist, mask = _td_level(rowptr, colidx, deg, dist, mask, depth,
-                                   out_edges)
-            n_frontier, scout = torch.stack(
-                [mask.sum(), frontier_degree_sum(mask, deg)]).tolist()
-            out_edges = scout
-            depth += 1
+            with span("bfs.level"):
+                iters += 1
+                edges_to_check -= scout
+                dist, mask = _td_level(rowptr, colidx, deg, dist, mask,
+                                       depth, out_edges)
+                n_frontier, scout = host_read(torch.stack(
+                    [mask.sum(), frontier_degree_sum(mask, deg)]))
+                out_edges = scout
+                depth += 1
     return BFSResult(dist, iters)
 
 
@@ -248,25 +252,31 @@ def bfs_do_fused(g, source: int, *, layout: str = "auto",
     deg_in = views.degrees(gg, dev, reverse=True)
     tiers = fused_tiers(m, gg.nnz)
     if new_of_old is not None:
-        source = new_of_old[source]
+        source = host_read(new_of_old[source])
     dist, mask = _start(m, source, dev)
-    depth = 0
-    while True:
-        alive, scout, work_bu = torch.stack(
+
+    def state():
+        # the one read that ends a level: whether a vertex is in the
+        # frontier, its out-edges (scout) and the unvisited rows' in-edges
+        return host_read(torch.stack(
             [mask.any().long(), frontier_degree_sum(mask, deg),
-             torch.where(dist == INF, deg_in, 0).sum()]).tolist()
-        if not alive:
-            break
-        idx = _pick_branch(scout, work_bu, tiers)
-        if idx < len(tiers):
-            dist, mask = _td_level(rowptr, colidx, deg, dist, mask, depth,
-                                   scout)
-        elif idx < 2 * len(tiers):
-            dist, mask = _bu_sparse_level(rowptr_r, colidx_r, deg_in, dist,
-                                          depth, work_bu)
-        else:
-            dist, mask = _bu_dense_level(sweep, dist, mask, depth)
-        depth += 1
+             torch.where(dist == INF, deg_in, 0).sum()]))
+
+    depth = 0
+    alive, scout, work_bu = state()
+    while alive:
+        with span("bfs.level"):
+            idx = _pick_branch(scout, work_bu, tiers)
+            if idx < len(tiers):
+                dist, mask = _td_level(rowptr, colidx, deg, dist, mask,
+                                       depth, scout)
+            elif idx < 2 * len(tiers):
+                dist, mask = _bu_sparse_level(rowptr_r, colidx_r, deg_in,
+                                              dist, depth, work_bu)
+            else:
+                dist, mask = _bu_dense_level(sweep, dist, mask, depth)
+            depth += 1
+            alive, scout, work_bu = state()
     if new_of_old is not None:
         dist = dist[new_of_old]
     return BFSResult(dist, depth)
@@ -305,11 +315,12 @@ def bfs_multi_source(g, sources, *, layout: str = "auto",
     d = 0
     alive = True
     while alive:
-        cnt = sweep((dist == d).to(torch.bfloat16))
-        newly = (cnt > 0) & (dist == INF)
-        dist = torch.where(newly, d + 1, dist)
-        d += 1
-        alive = bool(newly.any())           # the level's one read
+        with span("bfs.level"):
+            cnt = sweep((dist == d).to(torch.bfloat16))
+            newly = (cnt > 0) & (dist == INF)
+            dist = torch.where(newly, d + 1, dist)
+            d += 1
+            alive = host_read(newly.any())  # the level's one read
     if new_of_old is not None:
         dist = dist[new_of_old]             # (m, S) row gather
     return BFSResult(dist, d)
@@ -318,6 +329,7 @@ def bfs_multi_source(g, sources, *, layout: str = "auto",
 VARIANTS = {"pull": bfs_pull, "do": bfs_do, "do_fused": bfs_do_fused}
 
 
+@spanned("solve.bfs")
 def bfs_solver(g, source: int = 0, *, variant: str = "do",
                device="cuda") -> BFSResult:
     """Reference entry BFSSolver(g, source, dist) (src/bfs/bfs.h:43).

@@ -46,6 +46,7 @@ from gardenia_tpu_torch.ops.frontier import (compact_mask,
 from gardenia_tpu_torch.ops.pointer_jump import pointer_jump
 from gardenia_tpu_torch.ops.semiring import I32_MIN_SELECT2
 from gardenia_tpu_torch.ops.spmv import spmv_ell
+from gardenia_tpu_torch.utils.profiler import spanned
 
 SENT = int(np.iinfo(np.int32).max)
 SAMPLE = 1024          # vertices sampled for the frequent component
@@ -290,6 +291,7 @@ def cc_afforest(g, neighbor_rounds: int = 2, *, device="cuda") -> CCResult:
 VARIANTS = {"sv": cc_sv, "afforest": cc_afforest}
 
 
+@spanned("solve.cc")
 def cc_solver(g, *, variant: str = "afforest", device="cuda") -> CCResult:
     """Reference entry CCSolver(g, comp) (src/cc/cc.h:30)."""
     if variant not in VARIANTS:

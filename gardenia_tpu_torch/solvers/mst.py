@@ -33,6 +33,7 @@ import torch
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.core import views
 from gardenia_tpu_torch.ops.pointer_jump import pointer_jump
+from gardenia_tpu_torch.utils.profiler import spanned
 
 INT_MAX = int(np.iinfo(np.int32).max)
 
@@ -67,6 +68,7 @@ def _edges(g, dev):
     return g._dev(("torch", "mst_edges", str(dev)), up)
 
 
+@spanned("solve.mst")
 def mst_solver(g, *, device="cuda") -> MSTResult:
     """g: a symmetrized graph (the reference loads with symmetrize=1,
     main.cu:171); unweighted graphs get unit weights (a spanning

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.utils.profiler import host_read, span, spanned
 
 KDAMP = 0.85          # reference src/pr/pr.h:6
 EPSILON = 1e-4        # reference src/pr/pr.h:5
@@ -61,10 +62,11 @@ def _pr_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
     errs = torch.full((max_iter,), float("inf"), dtype=torch.float32)
     it, err = 0, float("inf")
     while it < max_iter and err >= epsilon:
-        contrib = torch.where(has_out, scores / safe_deg, 0.0)
-        new_scores = base + kd * spmv_fn(contrib)
-        # one device-to-host read per iteration: the convergence test
-        err = float((new_scores - scores).abs().sum())
+        with span("pr.iteration"):
+            contrib = torch.where(has_out, scores / safe_deg, 0.0)
+            new_scores = base + kd * spmv_fn(contrib)
+            # one device-to-host read per iteration: the convergence test
+            err = host_read((new_scores - scores).abs().sum())
         errs[it] = err
         scores = new_scores
         it += 1
@@ -92,19 +94,21 @@ def _pr_delta_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
     errs = torch.full((max_iter,), float("inf"), dtype=torch.float32)
     it, err = 0, float("inf")
     while it < max_iter and err >= epsilon:
-        active = deltas.abs() > eps2 * scores
-        contrib = torch.where(active & has_out, deltas / safe_deg, 0.0)
-        sums = spmv_fn(contrib)
-        deltas = kd * sums
-        if it == 0:
-            deltas = base + deltas - init_score
-        scores = scores + deltas
-        err = float(deltas.abs().sum())      # the iteration's one read
+        with span("pr.iteration"):
+            active = deltas.abs() > eps2 * scores
+            contrib = torch.where(active & has_out, deltas / safe_deg, 0.0)
+            sums = spmv_fn(contrib)
+            deltas = kd * sums
+            if it == 0:
+                deltas = base + deltas - init_score
+            scores = scores + deltas
+            err = host_read(deltas.abs().sum())  # the iteration's one read
         errs[it] = err
         it += 1
     return scores, it, errs
 
 
+@spanned("solve.pr")
 def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
               variant: str = "pull", layout: str = "auto",
               device="cuda") -> PRResult:

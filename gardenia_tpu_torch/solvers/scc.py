@@ -34,6 +34,7 @@ import torch
 
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.core import views
+from gardenia_tpu_torch.utils.profiler import spanned
 
 VARIANTS = ("color", "wcc")
 
@@ -92,6 +93,7 @@ def _trim(m, src, dst, vid, root, active):
             return root, active
 
 
+@spanned("solve.scc")
 def scc_solver(g, *, max_rounds: int = None, variant: str = "color",
                device="cuda") -> SCCResult:
     """Reference entry SCCSolver(m, nnz, in/out CSR, scc_root)

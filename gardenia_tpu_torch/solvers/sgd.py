@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.utils.profiler import spanned
 
 K = 20                 # latent dims (sgd.h:25)
 DEFAULT_LAMBDA = 0.05  # driver default (src/sgd/main.cc:35)
@@ -143,6 +144,7 @@ def _edges(g):
     return src, np.asarray(g.colidx), np.asarray(ratings, np.float32)
 
 
+@spanned("solve.sgd")
 def sgd_solver(g, lam: float = DEFAULT_LAMBDA, step: float = DEFAULT_STEP,
                max_iters: int = DEFAULT_MAX_ITERS,
                epsilon: float = DEFAULT_EPSILON, seed: int = 0,

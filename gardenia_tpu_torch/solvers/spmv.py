@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.utils.profiler import spanned
 
 VARIANTS = ("ell", "hybrid", "auto", "segment", "push_pb")
 # threshold of a hybrid layout built from edge values (always, once the
@@ -77,6 +78,7 @@ def _f32(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
 
+@spanned("solve.spmv")
 def spmv_solver(g, Ax=None, x=None, y=None, *, variant: str = "ell",
                 device="cuda") -> torch.Tensor:
     """y + A x as an f32 tensor on `device`.

@@ -46,6 +46,7 @@ from gardenia_tpu_torch.ops.frontier import (compact_mask,
                                              expand_frontier_edges)
 from gardenia_tpu_torch.ops.semiring import I32_MIN_PLUS
 from gardenia_tpu_torch.ops.spmv import spmv_ell
+from gardenia_tpu_torch.utils.profiler import spanned
 
 INF = int(T.MYINFINITY)
 ALPHA = 15
@@ -151,6 +152,7 @@ def sssp_hybrid(g, source: int = 0, delta: int = 1, *,
                           dev=resolve_device(device))
 
 
+@spanned("solve.sssp")
 def sssp_solver(g, source: int = 0, delta: int = 1, *,
                 variant: str = "delta", max_rounds: int = None,
                 device="cuda") -> SSSPResult:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.utils.profiler import spanned
 
 
 class SymGSResult(NamedTuple):
@@ -125,6 +126,7 @@ def default_inputs(g, device):
                   lambda: fill_inputs(g, device=device))
 
 
+@spanned("solve.symgs")
 def symgs_solver(g, Ax: Optional[np.ndarray] = None,
                  x: Optional[np.ndarray] = None,
                  b: Optional[np.ndarray] = None,

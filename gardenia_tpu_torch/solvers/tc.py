@@ -38,6 +38,7 @@ from gardenia_tpu_torch.core.views import _key
 from gardenia_tpu_torch.ops import tc_count
 from gardenia_tpu_torch.ops.intersect import membership_counts
 from gardenia_tpu_torch.ops.tc_count import LANES, ROT_WIDTHS
+from gardenia_tpu_torch.utils.profiler import host_read, spanned
 
 HUB_THRESHOLD = 128        # deg+ >= this -> bitmap intersection path
 BITMAP_BUDGET_WORDS = 1 << 27   # <= 512 MB of uint32 bitmap rows
@@ -263,7 +264,7 @@ def tc_rotate(g, *, chunk: int = 1 << 13, presorted_dag: bool = False,
         else:
             counts = tc_count.rot_count(data.table, cu, cv, W, chunk=chunk)
         total += torch.sum(counts, dtype=torch.int64)
-    return int(total)
+    return host_read(total)
 
 
 def tc_bsearch(g, *, chunk: int = 1 << 20, presorted_dag: bool = False,
@@ -276,7 +277,7 @@ def tc_bsearch(g, *, chunk: int = 1 << 20, presorted_dag: bool = False,
     if dag.nnz == 0:
         return 0
     index = wedge_index(dag, dev)
-    return int(count_wedges(index, 0, index[4], chunk))
+    return host_read(count_wedges(index, 0, index[4], chunk))
 
 
 def wedge_index(dag, dev):
@@ -314,6 +315,7 @@ def count_wedges(index, lo: int, hi: int, chunk: int) -> torch.Tensor:
     return total
 
 
+@spanned("solve.tc")
 def tc_solver(g, *, variant: str = "rotate", device="cuda", **kw) -> int:
     """Reference entry TCSolver(g, total) (src/tc/tc.h:7).  g must be
     symmetric (undirected); the DAG orientation is applied internally.

@@ -45,6 +45,7 @@ from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.core import types as T
 from gardenia_tpu_torch.core import views
 from gardenia_tpu_torch.ops import vc_core
+from gardenia_tpu_torch.utils.profiler import spanned
 
 # the JAX solver's constants, under its names (tests set them in both)
 VC_SPARSE_CAPS = (1 << 17, 1 << 21)
@@ -152,6 +153,7 @@ def sparse_tiers(m: int, nnz: int):
     return tiers
 
 
+@spanned("solve.vc")
 def vc_solver(g, *, max_color: int = T.MAXCOLOR, device="cuda") -> VCResult:
     """Reference entry int VCSolver(g, colors) (src/vc/vc.h:31) on a
     symmetrized graph (the reference drivers load with symmetrize=1)."""

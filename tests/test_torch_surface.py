@@ -338,42 +338,3 @@ print("imports ok")
                           capture_output=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "imports ok"
-
-
-def test_bench_ab_runs_the_trees_in_turns(tmp_path):
-    """tools.bench_ab on the CPU, under the finder that refuses jax: the
-    host lines, one bench record a run in the order A, B, A, B (this
-    checkout and a copy of its package), and a summary a kernel."""
-    import json
-    import shutil
-    shutil.copytree(os.path.join(REPO, "gardenia_tpu_torch"),
-                    tmp_path / "gardenia_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    trees = [os.path.abspath(REPO), str(tmp_path)]
-    proc = _run(["-m", "gardenia_tpu_torch.tools.bench_ab", *trees,
-                 "--kernels", "pr", "--rounds", "2", "--scale", "8",
-                 "--device", "cpu"])
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.splitlines()
-    assert lines[0].startswith("Model name") and lines[1].startswith("nproc")
-    runs = [json.loads(ln) for ln in lines if ln.startswith('{"tree"')]
-    assert [(r["tree"], r["round"]) for r in runs] == \
-        [(trees[0], 0), (trees[1], 0), (trees[0], 1), (trees[1], 1)]
-    assert all(r["record"]["metric"] == "pr_pull_gteps_rmat8" and
-               r["value"] > 0 for r in runs)
-    last = json.loads(lines[-1])
-    assert last["kernel"] == "pr" and sorted(last["trees"]) == sorted(trees)
-    assert last["trees"][trees[1]]["values"] == [runs[1]["value"],
-                                                 runs[3]["value"]]
-    assert last["trees"][trees[0]]["over_first"] == 1.0
-
-
-@pytest.mark.parametrize("b,overlap,over_first", [
-    ([9.0, 11.0], True, 10 / 10.25), ([7.4, 7.8], False, 7.6 / 10.25)],
-    ids=["overlapping", "apart"])
-def test_bench_ab_summary(b, overlap, over_first):
-    from gardenia_tpu_torch.tools.bench_ab import summary
-    out = summary("pr", ["a", "b"], {"a": [10.0, 10.5], "b": b})
-    assert out["ranges_overlap"] is overlap
-    assert out["trees"]["a"]["spread"] == pytest.approx(0.5 / 10.25)
-    assert out["trees"]["b"]["over_first"] == pytest.approx(over_first)
