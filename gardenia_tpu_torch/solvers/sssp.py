@@ -25,8 +25,13 @@ in-ELL.
 The JAX solver fuses its rounds in one lax.while_loop with lax.cond
 choosing the branch.  Here the loop runs on the host and reads back once
 a round: the active count and their out-edge count (scout), in one
-packed read.  The branch rule is the JAX package's, so every round takes
-the same branch and `iterations` match; the sparse branch's capacity is
+packed read (`utils/profiler.host_read`; a round is a span `sssp.round`,
+and the counters `sssp.rounds_sparse`, `sssp.rounds_dense` and
+`sssp.edges_sparse` say which branch each round took and how many edges
+the sparse rounds expanded).  The loop's last read finds the frontier
+empty, so a solve reads `iterations` + 1 times.  The branch rule is the
+JAX package's, so every round takes the same branch and `iterations`
+match; the sparse branch's capacity is
 the round's exact edge count, where the JAX solver pads it to a power of
 two, which changes no result.  The JAX signature's `segment_rounds` and
 `checkpointer` (host segmentation for the TPU worker's program kill) are
@@ -46,7 +51,7 @@ from gardenia_tpu_torch.ops.frontier import (compact_mask,
                                              expand_frontier_edges)
 from gardenia_tpu_torch.ops.semiring import I32_MIN_PLUS
 from gardenia_tpu_torch.ops.spmv import spmv_ell
-from gardenia_tpu_torch.utils.profiler import spanned
+from gardenia_tpu_torch.utils.profiler import count, host_read, span, spanned
 
 INF = int(T.MYINFINITY)
 ALPHA = 15
@@ -119,22 +124,27 @@ def _bucket_rounds(g, source: int, delta: int, *, use_delta: bool,
     dist, frontier = _start(g.m, source, dev)
     rounds = 0
     while rounds < max_rounds:
-        if use_delta:
-            bucket = torch.where(frontier, dist // delta, INF).min()
-            active = frontier & (dist // delta == bucket)
-        else:
-            active = frontier
-        n_active, scout = (int(v) for v in torch.stack([
-            active.sum(), torch.where(active, r.deg, 0).sum()]).tolist())
-        if n_active == 0:              # the frontier is empty
-            break
-        rounds += 1
-        if scout <= threshold:
-            new = r.sparse(dist, compact_mask(active, n_active, g.m), scout)
-        else:
-            new = r.dense(dist, active)
-        frontier = (frontier & ~active) | (new < dist)
-        dist = new
+        with span("sssp.round"):
+            if use_delta:
+                bucket = torch.where(frontier, dist // delta, INF).min()
+                active = frontier & (dist // delta == bucket)
+            else:
+                active = frontier
+            n_active, scout = (int(v) for v in host_read(torch.stack([
+                active.sum(), torch.where(active, r.deg, 0).sum()])))
+            if n_active == 0:          # the frontier is empty
+                break
+            rounds += 1
+            if scout <= threshold:
+                count("sssp.rounds_sparse")
+                count("sssp.edges_sparse", scout)
+                new = r.sparse(dist, compact_mask(active, n_active, g.m),
+                               scout)
+            else:
+                count("sssp.rounds_dense")
+                new = r.dense(dist, active)
+            frontier = (frontier & ~active) | (new < dist)
+            dist = new
     return SSSPResult(dist, rounds)
 
 

@@ -20,10 +20,11 @@ overflows or bursts, so `iterations` match the JAX solver's.
 
 The JAX solver runs its rounds under lax.while_loop with one lax.switch
 over graduated static capacity tiers, which only give XLA static shapes.
-Here the loop runs on the host, and every round ends with one packed read
-of the counts it produced (the near pushes, the far pushes and the new
-near queue's out-edges, the scout), from which the host derives qn, fn
-and the overflow flag and chooses the next branch; the queues then hold
+Here the loop runs on the host, and every round (a span `sssp.round`)
+ends with one packed read (`utils/profiler.host_read`) of the counts it
+produced (the near pushes, the far pushes and the new near queue's
+out-edges, the scout), from which the host derives qn, fn and the
+overflow flag and chooses the next branch; the queues then hold
 exactly their entries and a relax expands exactly their edges.  The TPU
 row tables (rowsel.to_rows, expand_frontier_edges_tbl) and the host
 segmentation are not ported.
@@ -39,6 +40,7 @@ from gardenia_tpu_torch.core import types as T
 from gardenia_tpu_torch.ops.frontier import compact_mask
 from gardenia_tpu_torch.solvers.sssp import (INF, Relaxer, SSSPResult,
                                              _start)
+from gardenia_tpu_torch.utils.profiler import host_read, span
 
 
 def _default_caps(m: int, nnz: int):
@@ -84,64 +86,66 @@ def sssp_nearfar(g, source: int = 0, delta: int = 1, *, q_cap: int = None,
     it = 0
 
     def read(*counts):
-        return (int(v) for v in torch.stack(counts).tolist())
+        return (int(v) for v in host_read(torch.stack(counts)))
 
     while (qn > 0 or fn > 0 or ovf) and it < max_rounds:
-        it += 1
-        if ovf:                                   # DENSE REBUILD
-            new = r.dense(dist)
-            improved = new < dist
-            dist = new
-            nm = torch.where(improved, dist, INF).min() // delta
-            thresh = torch.where(improved.any(),
-                                 torch.maximum(thresh, nm * delta + delta),
-                                 thresh)
-            near = improved & (dist < thresh)
-            far = improved & ~near
-            ncount, fcount, scout = read(
-                near.sum(), far.sum(), torch.where(near, r.deg, 0).sum())
-            q = compact_mask(near, min(ncount, Q), m)
-            fq = compact_mask(far, min(fcount, F), m)
-            ovf = ncount > Q or fcount > F
-            qn = 0 if ncount > Q else ncount
-            fn = min(fcount, F)
-        elif qn == 0:                             # ADVANCE
-            dv = dist[fq.long()]
-            nm = (dv // delta).min()
-            # max() keeps the threshold monotone: stale far entries
-            # (settled below it via another path) migrate into one
-            # harmless near round instead of stepping it back
-            thresh = torch.maximum(thresh, nm * delta + delta)
-            near = dv < thresh
-            ncount, fcount, scout = read(
-                near.sum(), (~near).sum(),
-                torch.where(near, r.deg[fq.long()], 0).sum())
-            q = fq[compact_mask(near, min(ncount, Q), 0).long()]
-            fq = fq[compact_mask(~near, fcount, 0).long()]
-            ovf = ncount > Q
-            qn = 0 if ovf else ncount
-            fn = fcount
-        elif qn > q_max or scout > e_max:         # BURST
-            q = q[:0]
-            qn, ovf = 0, True
-        else:                                     # NEAR
-            if scout == 0:
-                q, qn = q[:0], 0
-                continue
-            dst, nd = r.edges(dist, q, scout)
-            dl = dst.long()
-            new = dist.scatter_reduce(0, dl, nd, "amin")
-            new_at = new[dl]
-            winner = (new_at < dist[dl]) & (nd == new_at)
-            dist = new
-            near = winner & (nd < thresh)
-            far = winner & ~near
-            ncount, fcount, scout = read(
-                near.sum(), far.sum(), torch.where(near, r.deg[dl], 0).sum())
-            q = dst[compact_mask(near, min(ncount, Q), 0).long()]
-            fq = torch.cat([fq, dst[compact_mask(far, fcount, 0).long()]])
-            ovf = ncount > Q or fn + fcount > F
-            qn = 0 if ncount > Q else ncount
-            fq = fq[:F]         # pushes past the capacity are dropped
-            fn = min(fn + fcount, F)
+        with span("sssp.round"):
+            it += 1
+            if ovf:                                   # DENSE REBUILD
+                new = r.dense(dist)
+                improved = new < dist
+                dist = new
+                nm = torch.where(improved, dist, INF).min() // delta
+                thresh = torch.where(improved.any(),
+                                     torch.maximum(thresh, nm * delta + delta),
+                                     thresh)
+                near = improved & (dist < thresh)
+                far = improved & ~near
+                ncount, fcount, scout = read(
+                    near.sum(), far.sum(), torch.where(near, r.deg, 0).sum())
+                q = compact_mask(near, min(ncount, Q), m)
+                fq = compact_mask(far, min(fcount, F), m)
+                ovf = ncount > Q or fcount > F
+                qn = 0 if ncount > Q else ncount
+                fn = min(fcount, F)
+            elif qn == 0:                             # ADVANCE
+                dv = dist[fq.long()]
+                nm = (dv // delta).min()
+                # max() keeps the threshold monotone: stale far entries
+                # (settled below it via another path) migrate into one
+                # harmless near round instead of stepping it back
+                thresh = torch.maximum(thresh, nm * delta + delta)
+                near = dv < thresh
+                ncount, fcount, scout = read(
+                    near.sum(), (~near).sum(),
+                    torch.where(near, r.deg[fq.long()], 0).sum())
+                q = fq[compact_mask(near, min(ncount, Q), 0).long()]
+                fq = fq[compact_mask(~near, fcount, 0).long()]
+                ovf = ncount > Q
+                qn = 0 if ovf else ncount
+                fn = fcount
+            elif qn > q_max or scout > e_max:         # BURST
+                q = q[:0]
+                qn, ovf = 0, True
+            else:                                     # NEAR
+                if scout == 0:
+                    q, qn = q[:0], 0
+                    continue
+                dst, nd = r.edges(dist, q, scout)
+                dl = dst.long()
+                new = dist.scatter_reduce(0, dl, nd, "amin")
+                new_at = new[dl]
+                winner = (new_at < dist[dl]) & (nd == new_at)
+                dist = new
+                near = winner & (nd < thresh)
+                far = winner & ~near
+                ncount, fcount, scout = read(
+                    near.sum(), far.sum(),
+                    torch.where(near, r.deg[dl], 0).sum())
+                q = dst[compact_mask(near, min(ncount, Q), 0).long()]
+                fq = torch.cat([fq, dst[compact_mask(far, fcount, 0).long()]])
+                ovf = ncount > Q or fn + fcount > F
+                qn = 0 if ncount > Q else ncount
+                fq = fq[:F]         # pushes past the capacity are dropped
+                fn = min(fn + fcount, F)
     return SSSPResult(dist, it)
