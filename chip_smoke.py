@@ -14,11 +14,17 @@ result:
      random graphs; limit max|diff| / max|y| < 1e-5.  Then pull PageRank
      on R-MAT-16 on the card against the serial numpy oracle;
   4. the PR main path: the port's bench (python -m gardenia_tpu_torch.bench),
-     pull PageRank on R-MAT-20 over the hybrid layout — generate, relabel,
-     build_hybrid, upload, pr_solver on cuda — with K1's launch count read
-     around it, the oracle's residual, and one spmv_hybrid apply timed
-     with K1 and with the plain version; the library yardstick at S = 1
-     (one torch.sparse_bsr_tensor product over the whole dense part);
+     pull PageRank on R-MAT-20 over "auto"'s layout on the card, the
+     relabelled ELL — generate, relabel, build_ell, upload, pr_solver on
+     cuda — with K1's launches (none) and E1's (one an iteration) read
+     around it; one "auto" and one layout="hybrid" solve, each with its
+     K1 (iterations x panel arrays for hybrid) and E1 launches and the
+     oracle's residual; E1 (spmv_ell) against spmv_ell_plain, within 1e-6
+     relative, and timed beside its bytes bound, on the hybrid layout's
+     remainder and on the whole relabelled ELL layout that "auto" applies;
+     one spmv_hybrid apply timed with K1 and with the plain version; the
+     library yardstick at S = 1 (one torch.sparse_bsr_tensor product over
+     the whole dense part);
   5. triangle counting's kernels K3 (rot_count), K4 (merge_count, with
      its class width W) and H1 (bitmap_count) against their plain
      versions on the card, pair by pair with exact integer equality, in
@@ -339,6 +345,10 @@ Q1_REPLACES = "gardenia_tpu/mining/kcl.py:175"
 # (its widest out-degree is 254, under HUB_DEGREE); the hubs' run at k = 5
 # is held by the hand cases (K_{513,513}, K_{1024,1024}, the lone hub)
 KCL_K5_SCALE = 14
+# E1, the f32 plus-times ELL apply: it replaces the XLA gather-reduce of
+# the JAX package's spmv_ell (no Pallas kernel)
+E1_SOURCE = "gardenia_tpu_torch/csrc/ell_spmv.cu"
+E1_REPLACES = "gardenia_tpu/ops/spmv.py:26"
 TRI_CHUNK = 1 << 23         # edge_triangle_counts' step on the card, wedges
 # (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
 # default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
@@ -3264,7 +3274,7 @@ def main() -> None:
     from gardenia_tpu_torch.verify import oracles
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.core import views
-    from gardenia_tpu_torch.ops import _build, bsr, panel
+    from gardenia_tpu_torch.ops import _build, bsr, panel, spmv
     from gardenia_tpu_torch.bench import SOURCES
     from gardenia_tpu_torch.solvers.pr import EPSILON, pr_solver
 
@@ -3367,39 +3377,59 @@ def main() -> None:
     t_gen = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    views.relabeled_hybrid(g, dev)      # relabel, build_hybrid, upload
+    # the layout "auto" takes on the card: relabel, build_ell, upload
+    views.ell(views.relabel_maps(g, dev)[0], dev, reverse=True)
     torch.cuda.synchronize()
-    print(f"[4] host set-up: generate {t_gen:.1f} s, relabel + build_hybrid"
+    print(f"[4] host set-up: generate {t_gen:.1f} s, relabel + build_ell"
           f" + upload {time.perf_counter() - t0:.1f} s")
     solves = bench.WARMUP + bench.ITERS
     panel.LAUNCHES.update(simt=0, tc=0)
+    e1_before = spmv.LAUNCHES["ell"]
     record, g, res = bench.bench_pr(MAIN_SCALE, dev, g=g)
     launches = panel.LAUNCHES["simt"]
+    e1_bench = spmv.LAUNCHES["ell"] - e1_before
     print(json.dumps(record))
-    _, hyb, _ = views.relabeled_hybrid(g, dev)
-    n_panels = len(hyb.dense)
     iters = res.iterations
-    print(f"[4] rmat{MAIN_SCALE}: |V| {g.m} |E| {g.nnz}, {n_panels} panel "
-          f"arrays, {hyb.num_blocks} blocks, {iters} iterations, "
-          f"K1 launches {launches} over {solves} solves, peak device memory "
+    print(f"[4] rmat{MAIN_SCALE}: |V| {g.m} |E| {g.nnz}, {iters} "
+          f"iterations, over {solves} solves K1 launches {launches} and E1 "
+          f"launches {e1_bench}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not 0 < iters < 100:
         fail(f"PR did not converge: {iters} iterations")
-    if launches == 0 or launches != solves * iters * n_panels:
-        fail(f"K1 launches {launches} != {solves} x {iters} x {n_panels}")
-    panel.LAUNCHES.update(simt=0, tc=0)
-    res = pr_solver(g, device=dev)
-    one = panel.LAUNCHES["simt"]
-    scores = res.scores.cpu().numpy()
-    if scores.shape != (g.m,) or not np.isfinite(scores).all():
-        fail("scores are not finite of shape (m,)")
-    resid = oracles.pagerank_push_residual(g, scores)
-    print(f"[4] one solve: {res.iterations} iterations, K1 launches {one}, "
-          f"residual {resid:.3e}")
-    if one != res.iterations * n_panels:
-        fail(f"K1 launches {one} != {res.iterations} x {n_panels}")
-    if not resid < EPSILON:
-        fail(f"residual {resid} >= {EPSILON}")
+    # "auto" on the card: the relabelled ELL layout, one E1 launch an
+    # iteration and no K1
+    if launches != 0 or e1_bench != solves * iters:
+        fail(f"K1 launches {launches} != 0 or E1 launches {e1_bench} != "
+             f"{solves} x {iters}")
+    t0 = time.perf_counter()
+    _, hyb, _ = views.relabeled_hybrid(g, dev)      # build_hybrid, upload
+    torch.cuda.synchronize()
+    n_panels = len(hyb.dense)
+    print(f"[4] build_hybrid + upload {time.perf_counter() - t0:.1f} s: "
+          f"{n_panels} panel arrays, {hyb.num_blocks} blocks")
+    # one solve of each layout: "auto" runs E1 alone, "hybrid" K1 on every
+    # panel array and E1 on the remainder, each iteration
+    e1_solve = {}
+    for layout in ("auto", "hybrid"):
+        panel.LAUNCHES.update(simt=0, tc=0)
+        e1_before = spmv.LAUNCHES["ell"]
+        res = pr_solver(g, layout=layout, device=dev)
+        one, e1 = panel.LAUNCHES["simt"], spmv.LAUNCHES["ell"] - e1_before
+        e1_solve[layout] = e1
+        scores = res.scores.cpu().numpy()
+        if scores.shape != (g.m,) or not np.isfinite(scores).all():
+            fail("scores are not finite of shape (m,)")
+        resid = oracles.pagerank_push_residual(g, scores)
+        print(f"[4] one {layout} solve: {res.iterations} iterations, K1 "
+              f"launches {one}, E1 launches {e1}, residual {resid:.3e}")
+        want = res.iterations * n_panels if layout == "hybrid" else 0
+        pr_k1 = one
+        if one != want:
+            fail(f"K1 launches {one} != {want} ({layout})")
+        if e1 != res.iterations:
+            fail(f"E1 launches {e1} != {res.iterations} ({layout})")
+        if not resid < EPSILON:
+            fail(f"residual {resid} >= {EPSILON}")
 
     # one apply at the main path's shapes: K1 against the plain version,
     # in turns (plain, K1, K1, plain) on this card
@@ -3440,6 +3470,28 @@ def main() -> None:
           f"{ell_bound:.4f} ms ({ell_by}), spmv_ell alone (E1) "
           f"{ell_ms:.3f} ms, spmv_ell_plain {plain_ms:.3f} ms, E1 vs plain "
           f"rel {e1_rel:.3e}")
+
+    # E1 at the main path's shape: the whole relabelled graph as one ELL
+    # layout, the matrix that "auto" applies on the card, on the same x
+    main_ell = views.ell(views.relabel_maps(g, dev)[0], dev, reverse=True)
+    whole = ell_stats(main_ell)
+    y_e1 = spmv_ell(main_ell, x, num_rows=g.m)
+    y_plain = spmv_ell_plain(main_ell, x, num_rows=g.m)
+    e1_main_rel = float((y_e1 - y_plain).abs().max() / y_plain.abs().max())
+    if not e1_main_rel <= 1e-6:
+        fail(f"E1 disagrees with spmv_ell_plain on the relabelled ELL "
+             f"layout: rel {e1_main_rel}")
+    e1_main_bytes = 4 * whole["slots"] + 4 * g.n + 4 * g.m
+    e1_main_bound = bound(e1_main_bytes, whole["slots"])
+    e1_main_ms = cuda_ms(lambda: spmv_ell(main_ell, x, num_rows=g.m))
+    e1_main_plain = cuda_ms(lambda: spmv_ell_plain(main_ell, x,
+                                                   num_rows=g.m))
+    print(f"[4] relabelled ELL (auto's apply): ell_stats {json.dumps(whole)},"
+          f" {g.nnz} edges; one f32 apply's bound "
+          f"{e1_main_bytes / 1e6:.3f} MB -> {e1_main_bound[0]:.4f} ms "
+          f"({e1_main_bound[1]}), E1 {e1_main_ms:.4f} ms, spmv_ell_plain "
+          f"{e1_main_plain:.3f} ms, E1 vs plain rel {e1_main_rel:.3e}")
+    del y_e1, y_plain
 
     def dense(fn):
         return lambda: [fn(p.panel, p.src, x3d, 1) for p in hyb.dense]
@@ -4210,9 +4262,10 @@ def main() -> None:
     entries = [{
         "name": "dense_panel_matmul", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches + bfs_routes["simt"] + spmv13["launches"]
-        + sum(dist_simt.values()),
+        "launches": launches + pr_k1 + bfs_routes["simt"]
+        + spmv13["launches"] + sum(dist_simt.values()),
         "launches_by_path": {f"pr bench rmat{MAIN_SCALE}": launches,
+                             f"pr hybrid solve rmat{MAIN_SCALE}": pr_k1,
                              f"bfs bench rmat{MAIN_SCALE}":
                              bfs_routes["simt"],
                              f"spmv bench rmat{MAIN_SCALE}":
@@ -4312,6 +4365,25 @@ def main() -> None:
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": tc_ms[name]["ms"], "plain_ms": tc_ms[name]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    entries.append({
+        # E1 at PR's main path on the card: the whole relabelled R-MAT
+        # graph as one ELL layout; the remainder's apply beside it
+        "name": "ell_spmv", "route": "cuda", "source": E1_SOURCE,
+        "replaces": E1_REPLACES,
+        "launches": e1_bench + sum(e1_solve.values()),
+        "launches_by_path": {f"pr bench rmat{MAIN_SCALE}": e1_bench,
+                             f"pr auto solve rmat{MAIN_SCALE}":
+                             e1_solve["auto"],
+                             f"pr hybrid solve rmat{MAIN_SCALE}":
+                             e1_solve["hybrid"]},
+        "launches_whole_run": spmv.LAUNCHES["ell"],
+        "mismatches": 0, "max_rel_err": e1_main_rel,
+        "ms": e1_main_ms, "plain_ms": e1_main_plain,
+        "bound_ms": e1_main_bound[0], "bound_by": e1_main_bound[1],
+        "slots": whole["slots"], "buckets": whole["buckets"],
+        "remainder_ms": ell_ms, "remainder_plain_ms": plain_ms,
+        "remainder_bound_ms": ell_bound, "remainder_max_rel_err": e1_rel,
+        "library_ms": None})
     entries.append(v1_entry)
     entries.append(q1_entry)
     print(f"[24] the whole run: {time.perf_counter() - RUN_START:.1f} s")

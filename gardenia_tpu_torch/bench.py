@@ -32,9 +32,10 @@ repo's bench.py:
        details.
   spmv — `spmv_gflops_rmat{scale}`: 2 x edges / the time of one apply, over
        a power loop of 8 hybrid applies (each normalized by max|y|), best
-       of 3 after one warm-up; the layout is the PR layout (relabelled,
-       threshold 16, int8 counts) with scale 0.2, the uniform values of
-       the reference's src/spmv/main.cc; vs 55 GFLOP/s;
+       of 3 after one warm-up; the layout is PR's layout="hybrid" (its
+       CPU "auto": relabelled, threshold 16, int8 counts) with scale 0.2,
+       the uniform values of the reference's src/spmv/main.cc; vs 55
+       GFLOP/s;
        detail.ms_per_apply, reps, and K1's launches over the 4 solves.
   sssp — `sssp_nf_gteps_grid{side}`: edges / solve time of near-far
        delta-stepping (delta 1024) from vertex 0 on the symmetrized
@@ -324,9 +325,11 @@ def bench_bc(scale: int, device="cuda", g=None, sources: int = SOURCES):
 
 def spmv_applies(g, device, reps: int = SPMV_REPS) -> torch.Tensor:
     """The SpMV bench's solve: a power loop of `reps` hybrid applies, each
-    normalized by max|y|, from x = 0.3, on the PR layout with scale 0.2 —
-    the reference's uniform 0.2 values (src/spmv/main.cc) factor into its
-    int8 count panels, so no second layout is built (bench.py:155-166)."""
+    normalized by max|y|, from x = 0.3, on the relabelled hybrid layout
+    (PR's layout="hybrid", its CPU "auto") with scale 0.2 — the
+    reference's uniform 0.2 values (src/spmv/main.cc) factor into its
+    int8 count panels (bench.py:155-166).  On a card PR's "auto" is the
+    relabelled ELL layout, so running both benches there builds both."""
     import dataclasses
     from gardenia_tpu_torch.core import views
     from gardenia_tpu_torch.ops.bsr import spmv_hybrid

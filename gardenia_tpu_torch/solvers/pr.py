@@ -17,11 +17,18 @@ out_degree, incoming = SpMV over the transposed graph, scores' = base +
 kDamp * incoming.
 
 Layouts (pull and delta):
-  'hybrid' — degree-relabelled hybrid block-sparse (ops/bsr.py): dense
-             panels through kernel K1 plus an ELL remainder.  Scores map
-             back to the original ids.
-  'ell'    — degree-bucketed slab SpMV (ops/ell.py) over the original ids.
-  'auto'   — hybrid (on every device).
+  'hybrid'        — degree-relabelled hybrid block-sparse (ops/bsr.py):
+                    dense panels through kernel K1 plus an ELL remainder.
+                    Scores map back to the original ids.
+  'relabeled_ell' — degree-bucketed slab SpMV (ops/ell.py) over the
+                    degree-relabelled ids, through kernel E1 on a card.
+                    Scores map back to the original ids.
+  'ell'           — degree-bucketed slab SpMV over the original ids.
+  'auto'          — relabeled_ell on a CUDA device, hybrid elsewhere
+                    (resolve_layout).  At one operand vector a 128x128
+                    int8 panel block costs 16 KB however few arcs it
+                    holds, while E1 reads 4 B a slot: on the card the
+                    ELL apply is the faster one.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
-from gardenia_tpu_torch.utils.profiler import host_read, span, spanned
+from gardenia_tpu_torch.utils.profiler import count, host_read, span, spanned
 
 KDAMP = 0.85          # reference src/pr/pr.h:6
 EPSILON = 1e-4        # reference src/pr/pr.h:5
@@ -108,6 +115,17 @@ def _pr_delta_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
     return scores, it, errs
 
 
+def resolve_layout(layout: str, device: torch.device) -> str:
+    """The pull layout that `layout` names on `device`: 'auto' is
+    relabeled_ell where E1 runs the apply (a CUDA device) and hybrid
+    elsewhere; any other name is itself.  The CPU keeps hybrid so that
+    the CPU tests keep the layout they hold against the JAX package; no
+    CPU timing chose it."""
+    if layout != "auto":
+        return layout
+    return "relabeled_ell" if device.type == "cuda" else "hybrid"
+
+
 @spanned("solve.pr")
 def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
               variant: str = "pull", layout: str = "auto",
@@ -119,9 +137,8 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
     """
     if variant not in ("pull", "push", "delta"):
         raise ValueError(f"unknown PR variant {variant!r}")
-    if layout == "auto":
-        layout = "hybrid"
     dev = resolve_device(device)
+    layout = resolve_layout(layout, dev)
     m = g.m
     from gardenia_tpu_torch.core import views
     from gardenia_tpu_torch.ops.semiring import F32_PLUS_TIMES
@@ -137,17 +154,22 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
         from gardenia_tpu_torch.ops.bsr import spmv_hybrid
         g2, hyb, new_of_old = views.relabeled_hybrid(g, dev)
         spmv_fn = partial(spmv_hybrid, hyb, num_rows=m)
-        scores, it, errs = loop(spmv_fn, views.degrees(g2, dev), m, epsilon,
-                                max_iter)
-        return PRResult(scores[new_of_old], it, errs)
-    if layout == "ell":
+    elif layout in ("relabeled_ell", "ell"):
         from gardenia_tpu_torch.ops.spmv import spmv_ell
-        spmv_fn = partial(spmv_ell, views.ell(g, dev, reverse=True),
+        if layout == "ell":
+            g2, new_of_old = g, None
+        else:
+            g2, new_of_old, _ = views.relabel_maps(g, dev)
+        spmv_fn = partial(spmv_ell, views.ell(g2, dev, reverse=True),
                           semiring=F32_PLUS_TIMES, num_rows=m)
-        scores, it, errs = loop(spmv_fn, views.degrees(g, dev), m, epsilon,
-                                max_iter)
-        return PRResult(scores, it, errs)
-    raise ValueError(f"unknown PR layout {layout!r}")
+    else:
+        raise ValueError(f"unknown PR layout {layout!r}")
+    count(f"pr.layout.{layout}")
+    scores, it, errs = loop(spmv_fn, views.degrees(g2, dev), m, epsilon,
+                            max_iter)
+    if new_of_old is not None:
+        scores = scores[new_of_old]
+    return PRResult(scores, it, errs)
 
 
 def pr_print_trace(result: PRResult) -> None:

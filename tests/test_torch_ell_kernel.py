@@ -20,6 +20,7 @@ import torch
 
 from gardenia_tpu_torch.core.generate import generate_graph
 from gardenia_tpu_torch.core.relabel import degree_relabel
+from gardenia_tpu_torch.ops import panel as tpanel
 from gardenia_tpu_torch.ops import spmv as tspmv
 from gardenia_tpu_torch.ops.bsr import build_hybrid, spmv_hybrid
 from gardenia_tpu_torch.ops.ell import EllMatrix, build_ell
@@ -429,11 +430,32 @@ def test_spmv_hybrid_on_the_card(card, kind, dense_threshold):
 @pytest.mark.gpu
 def test_pr_on_the_card_matches_the_cpu(card):
     from gardenia_tpu_torch.solvers.pr import pr_solver
-    # R-MAT-12's relabelled hybrid layout: 5 panel arrays and a remainder
+    # R-MAT-12: "auto" is the relabelled ELL layout on the card (one E1
+    # launch an iteration, no K1) and the relabelled hybrid layout on the
+    # CPU (5 panel arrays and a remainder)
     g = generate_graph("rmat", scale=12, degree=16, symmetrize=True)
     want = pr_solver(g, device="cpu")
-    before = tspmv.LAUNCHES["ell"]
+    before, k1_before = tspmv.LAUNCHES["ell"], dict(tpanel.LAUNCHES)
     got = pr_solver(g, device=card)
     assert got.iterations == want.iterations
     assert tspmv.LAUNCHES["ell"] - before == got.iterations
+    assert tpanel.LAUNCHES == k1_before
+    assert _rel(got.scores, want.scores) <= REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_pr_hybrid_on_the_card_matches_the_cpu(card):
+    """layout="hybrid" on the card: each iteration K1 on every panel
+    array and one E1 launch on the remainder."""
+    from gardenia_tpu_torch.core import views
+    from gardenia_tpu_torch.solvers.pr import pr_solver
+    g = generate_graph("rmat", scale=12, degree=16, symmetrize=True)
+    want = pr_solver(g, layout="hybrid", device="cpu")
+    n_panels = len(views.relabeled_hybrid(g, card)[1].dense)
+    assert n_panels > 0
+    before, k1_before = tspmv.LAUNCHES["ell"], tpanel.LAUNCHES["simt"]
+    got = pr_solver(g, layout="hybrid", device=card)
+    assert got.iterations == want.iterations
+    assert tspmv.LAUNCHES["ell"] - before == got.iterations
+    assert tpanel.LAUNCHES["simt"] - k1_before == got.iterations * n_panels
     assert _rel(got.scores, want.scores) <= REL_LIMIT

@@ -21,10 +21,19 @@ def _rmat(scale):
                           need_reverse=True)
 
 
-@pytest.mark.parametrize("scale", [12, 14])
-def test_pr_hybrid_matches_jax(scale):
+# the layouts held to the JAX solver's hybrid: the port's hybrid, and the
+# relabelled ELL layout that "auto" takes on a card (the same sums in
+# another order); the hybrid cases keep their ids
+_PULL_CASES = [pytest.param(12, "hybrid", id="12"),
+               pytest.param(14, "hybrid", id="14"),
+               pytest.param(12, "relabeled_ell", id="12-relabeled_ell"),
+               pytest.param(14, "relabeled_ell", id="14-relabeled_ell")]
+
+
+@pytest.mark.parametrize("scale,layout", _PULL_CASES)
+def test_pr_hybrid_matches_jax(scale, layout):
     g = _rmat(scale)
-    res_t = tpr.pr_solver(from_csr_of(g), layout="hybrid", device="cpu")
+    res_t = tpr.pr_solver(from_csr_of(g), layout=layout, device="cpu")
     res_j = jpr.pr_solver(g, layout="hybrid")
     it = int(res_j.iterations)
     assert res_t.iterations == it
@@ -45,6 +54,34 @@ def test_pr_ell_layout_matches_hybrid():
     res_a = tpr.pr_solver(g, device="cpu")
     assert res_e.iterations == res_h.iterations == res_a.iterations
     assert (res_e.scores - res_h.scores).abs().sum() < 1e-5
+
+
+def test_pr_auto_layout_by_device():
+    """"auto" is the relabelled ELL layout where E1 runs the apply (a CUDA
+    device) and the hybrid layout elsewhere; a named layout is itself."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert tpr.resolve_layout("auto", cuda) == "relabeled_ell"
+    assert tpr.resolve_layout("auto", torch.device("cuda", 1)) \
+        == "relabeled_ell"
+    assert tpr.resolve_layout("auto", cpu) == "hybrid"
+    for name in ("hybrid", "ell", "relabeled_ell"):
+        assert tpr.resolve_layout(name, cuda) == name
+        assert tpr.resolve_layout(name, cpu) == name
+
+
+@pytest.mark.parametrize("variant", ["pull", "delta"])
+def test_pr_counts_the_layout_it_runs(variant):
+    """One pr.layout.<name> count a solve, under the resolved name."""
+    from gardenia_tpu_torch.utils import profiler
+    g = from_csr_of(_rmat(8))
+    profiler.take()
+    with profiler.recording():
+        for layout in ("auto", "hybrid", "relabeled_ell", "ell", "ell"):
+            tpr.pr_solver(g, variant=variant, layout=layout, device="cpu")
+    got = {k: v for k, v in profiler.take()["counters"].items()
+           if k.startswith("pr.layout.")}
+    assert got == {"pr.layout.hybrid": 2, "pr.layout.relabeled_ell": 1,
+                   "pr.layout.ell": 2}
 
 
 def test_pr_directed_graph_matches_serial_oracle():
@@ -90,7 +127,9 @@ def _directed(scale):
 @pytest.mark.parametrize("variant,layout,kind", [
     ("push", "auto", "rmat12"), ("push", "auto", "directed10"),
     ("delta", "hybrid", "rmat12"), ("delta", "ell", "rmat12"),
-    ("delta", "hybrid", "directed10"), ("delta", "ell", "directed10")])
+    ("delta", "hybrid", "directed10"), ("delta", "ell", "directed10"),
+    ("delta", "relabeled_ell", "rmat12"),
+    ("delta", "relabeled_ell", "directed10")])
 def test_pr_push_and_delta_match_jax(variant, layout, kind):
     """Iteration count equal; scores within verify/compare's tolerance
     (maximum_relative_error below sqrt(f32 eps), the SpMV check of both
@@ -104,7 +143,10 @@ def test_pr_push_and_delta_match_jax(variant, layout, kind):
     g = _rmat(12) if kind == "rmat12" else _directed(10)
     res_t = tpr.pr_solver(from_csr_of(g), variant=variant, layout=layout,
                           device="cpu")
-    res_j = jpr.pr_solver(g, variant=variant, layout=layout)
+    # the JAX package has no relabelled ELL layout: its hybrid is the
+    # relabelled one
+    res_j = jpr.pr_solver(g, variant=variant, layout="hybrid"
+                          if layout == "relabeled_ell" else layout)
     it = int(res_j.iterations)
     assert res_t.iterations == it and 0 < it < tpr.MAX_ITER
     s_t, s_j = res_t.scores.numpy(), np.asarray(res_j.scores)
