@@ -1136,7 +1136,7 @@ def spmv_phase(dev, gpu: str, g, hyb, k1_stats: dict) -> dict:
         fail(f"the SpMV bench's power loop disagrees with scipy's: {err}")
 
     # one apply: the hybrid layout (K1 + ELL remainder) beside ELL-only
-    # ones (PR's layout="ell" over the original ids; the relabelled ids)
+    # ones (the generator's ids; the relabelled ids that PR's "ell" sweeps)
     x = torch.from_numpy(np.random.default_rng(15).random(g.n)
                          .astype(np.float32)).to(dev)
     ell_orig = views.ell(g, dev, reverse=True)

@@ -17,18 +17,15 @@ out_degree, incoming = SpMV over the transposed graph, scores' = base +
 kDamp * incoming.
 
 Layouts (pull and delta):
-  'hybrid'        — degree-relabelled hybrid block-sparse (ops/bsr.py):
-                    dense panels through kernel K1 plus an ELL remainder.
-                    Scores map back to the original ids.
-  'relabeled_ell' — degree-bucketed slab SpMV (ops/ell.py) over the
-                    degree-relabelled ids, through kernel E1 on a card.
-                    Scores map back to the original ids.
-  'ell'           — degree-bucketed slab SpMV over the original ids.
-  'auto'          — relabeled_ell on a CUDA device, hybrid elsewhere
-                    (resolve_layout).  At one operand vector a 128x128
-                    int8 panel block costs 16 KB however few arcs it
-                    holds, while E1 reads 4 B a slot: on the card the
-                    ELL apply is the faster one.
+  'hybrid' — degree-relabelled hybrid block-sparse (ops/bsr.py): dense
+             panels through kernel K1 plus an ELL remainder.
+  'ell'    — degree-bucketed slab SpMV (ops/ell.py) over the
+             degree-relabelled ids, through kernel E1 on a card.
+  'auto'   — ell on a CUDA device, hybrid elsewhere (resolve_layout).
+             At one operand vector a 128x128 int8 panel block costs
+             16 KB however few arcs it holds, while E1 reads 4 B a slot:
+             on the card the ELL apply is the faster one.
+Both layouts map the scores back to the original ids.
 """
 
 from __future__ import annotations
@@ -116,14 +113,14 @@ def _pr_delta_loop(spmv_fn, out_deg: torch.Tensor, m: int, epsilon: float,
 
 
 def resolve_layout(layout: str, device: torch.device) -> str:
-    """The pull layout that `layout` names on `device`: 'auto' is
-    relabeled_ell where E1 runs the apply (a CUDA device) and hybrid
-    elsewhere; any other name is itself.  The CPU keeps hybrid so that
-    the CPU tests keep the layout they hold against the JAX package; no
-    CPU timing chose it."""
+    """The pull layout that `layout` names on `device`: 'auto' is ell
+    where E1 runs the apply (a CUDA device) and hybrid elsewhere; any
+    other name is itself.  The CPU keeps hybrid so that the CPU tests
+    keep the layout they hold against the JAX package; no CPU timing
+    chose it."""
     if layout != "auto":
         return layout
-    return "relabeled_ell" if device.type == "cuda" else "hybrid"
+    return "ell" if device.type == "cuda" else "hybrid"
 
 
 @spanned("solve.pr")
@@ -154,12 +151,9 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
         from gardenia_tpu_torch.ops.bsr import spmv_hybrid
         g2, hyb, new_of_old = views.relabeled_hybrid(g, dev)
         spmv_fn = partial(spmv_hybrid, hyb, num_rows=m)
-    elif layout in ("relabeled_ell", "ell"):
+    elif layout == "ell":
         from gardenia_tpu_torch.ops.spmv import spmv_ell
-        if layout == "ell":
-            g2, new_of_old = g, None
-        else:
-            g2, new_of_old, _ = views.relabel_maps(g, dev)
+        g2, new_of_old, _ = views.relabel_maps(g, dev)
         spmv_fn = partial(spmv_ell, views.ell(g2, dev, reverse=True),
                           semiring=F32_PLUS_TIMES, num_rows=m)
     else:
@@ -167,9 +161,7 @@ def pr_solver(g, *, epsilon: float = EPSILON, max_iter: int = MAX_ITER,
     count(f"pr.layout.{layout}")
     scores, it, errs = loop(spmv_fn, views.degrees(g2, dev), m, epsilon,
                             max_iter)
-    if new_of_old is not None:
-        scores = scores[new_of_old]
-    return PRResult(scores, it, errs)
+    return PRResult(scores[new_of_old], it, errs)
 
 
 def pr_print_trace(result: PRResult) -> None:

@@ -37,8 +37,8 @@ and CUDA activity where a card is present) when `log_dir` or
 $GARDENIA_PROFILE_DIR is set, and writes it there as a Chrome trace with
 the region's spans on a host track of their own; `roi` mirrors the
 reference's gem5 roi_begin/roi_end hooks (include/sim.h:30-47) as a
-span.  The per-kernel device breakdown of a solve is
-`python -m gardenia_tpu_torch.profile_solve`.
+span.  A solve's device breakdown is its `profile_region` trace: one
+file per process, so a rank of a torch.distributed run writes its own.
 """
 
 from __future__ import annotations

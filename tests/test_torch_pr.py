@@ -21,13 +21,13 @@ def _rmat(scale):
                           need_reverse=True)
 
 
-# the layouts held to the JAX solver's hybrid: the port's hybrid, and the
-# relabelled ELL layout that "auto" takes on a card (the same sums in
-# another order); the hybrid cases keep their ids
+# the layouts held to the JAX solver's hybrid: the port's hybrid, and its
+# ELL layout over the same relabelled ids that "auto" takes on a card (the
+# same sums in another order); the hybrid cases keep their ids
 _PULL_CASES = [pytest.param(12, "hybrid", id="12"),
                pytest.param(14, "hybrid", id="14"),
-               pytest.param(12, "relabeled_ell", id="12-relabeled_ell"),
-               pytest.param(14, "relabeled_ell", id="14-relabeled_ell")]
+               pytest.param(12, "ell", id="12-ell"),
+               pytest.param(14, "ell", id="14-ell")]
 
 
 @pytest.mark.parametrize("scale,layout", _PULL_CASES)
@@ -57,14 +57,13 @@ def test_pr_ell_layout_matches_hybrid():
 
 
 def test_pr_auto_layout_by_device():
-    """"auto" is the relabelled ELL layout where E1 runs the apply (a CUDA
-    device) and the hybrid layout elsewhere; a named layout is itself."""
+    """"auto" is the ELL layout where E1 runs the apply (a CUDA device)
+    and the hybrid layout elsewhere; a named layout is itself."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert tpr.resolve_layout("auto", cuda) == "relabeled_ell"
-    assert tpr.resolve_layout("auto", torch.device("cuda", 1)) \
-        == "relabeled_ell"
+    assert tpr.resolve_layout("auto", cuda) == "ell"
+    assert tpr.resolve_layout("auto", torch.device("cuda", 1)) == "ell"
     assert tpr.resolve_layout("auto", cpu) == "hybrid"
-    for name in ("hybrid", "ell", "relabeled_ell"):
+    for name in ("hybrid", "ell"):
         assert tpr.resolve_layout(name, cuda) == name
         assert tpr.resolve_layout(name, cpu) == name
 
@@ -76,12 +75,11 @@ def test_pr_counts_the_layout_it_runs(variant):
     g = from_csr_of(_rmat(8))
     profiler.take()
     with profiler.recording():
-        for layout in ("auto", "hybrid", "relabeled_ell", "ell", "ell"):
+        for layout in ("auto", "hybrid", "ell", "ell"):
             tpr.pr_solver(g, variant=variant, layout=layout, device="cpu")
     got = {k: v for k, v in profiler.take()["counters"].items()
            if k.startswith("pr.layout.")}
-    assert got == {"pr.layout.hybrid": 2, "pr.layout.relabeled_ell": 1,
-                   "pr.layout.ell": 2}
+    assert got == {"pr.layout.hybrid": 2, "pr.layout.ell": 2}
 
 
 def test_pr_directed_graph_matches_serial_oracle():
@@ -124,13 +122,24 @@ def _directed(scale):
                           need_reverse=True)
 
 
-@pytest.mark.parametrize("variant,layout,kind", [
-    ("push", "auto", "rmat12"), ("push", "auto", "directed10"),
-    ("delta", "hybrid", "rmat12"), ("delta", "ell", "rmat12"),
-    ("delta", "hybrid", "directed10"), ("delta", "ell", "directed10"),
-    ("delta", "relabeled_ell", "rmat12"),
-    ("delta", "relabeled_ell", "directed10")])
-def test_pr_push_and_delta_match_jax(variant, layout, kind):
+# the JAX package's ELL layout keeps the generator's ids, and its hybrid is
+# relabelled: the port's relabelled ell is held to both
+@pytest.mark.parametrize("variant,layout,kind,jax_layout", [
+    pytest.param("push", "auto", "rmat12", "auto", id="push-auto-rmat12"),
+    pytest.param("push", "auto", "directed10", "auto",
+                 id="push-auto-directed10"),
+    pytest.param("delta", "hybrid", "rmat12", "hybrid",
+                 id="delta-hybrid-rmat12"),
+    pytest.param("delta", "ell", "rmat12", "ell", id="delta-ell-rmat12"),
+    pytest.param("delta", "hybrid", "directed10", "hybrid",
+                 id="delta-hybrid-directed10"),
+    pytest.param("delta", "ell", "directed10", "ell",
+                 id="delta-ell-directed10"),
+    pytest.param("delta", "ell", "rmat12", "hybrid",
+                 id="delta-ell-rmat12-hybrid"),
+    pytest.param("delta", "ell", "directed10", "hybrid",
+                 id="delta-ell-directed10-hybrid")])
+def test_pr_push_and_delta_match_jax(variant, layout, kind, jax_layout):
     """Iteration count equal; scores within verify/compare's tolerance
     (maximum_relative_error below sqrt(f32 eps), the SpMV check of both
     CLIs) and within 1e-5 in L1; the error trace within 1e-5 relative
@@ -143,10 +152,7 @@ def test_pr_push_and_delta_match_jax(variant, layout, kind):
     g = _rmat(12) if kind == "rmat12" else _directed(10)
     res_t = tpr.pr_solver(from_csr_of(g), variant=variant, layout=layout,
                           device="cpu")
-    # the JAX package has no relabelled ELL layout: its hybrid is the
-    # relabelled one
-    res_j = jpr.pr_solver(g, variant=variant, layout="hybrid"
-                          if layout == "relabeled_ell" else layout)
+    res_j = jpr.pr_solver(g, variant=variant, layout=jax_layout)
     it = int(res_j.iterations)
     assert res_t.iterations == it and 0 < it < tpr.MAX_ITER
     s_t, s_j = res_t.scores.numpy(), np.asarray(res_j.scores)

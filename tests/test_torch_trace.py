@@ -173,7 +173,7 @@ def test_profile_region_writes_its_spans_into_the_trace(tmp_path):
 
 @pytest.mark.parametrize("variant,layout", [
     ("pull", "hybrid"), ("pull", "ell"), ("delta", "hybrid"),
-    ("push", "auto"), ("pull", "relabeled_ell"), ("delta", "relabeled_ell")])
+    ("push", "auto"), ("pull", "auto"), ("delta", "ell")])
 def test_pr_reads_once_an_iteration(graph, rec, variant, layout):
     r = pr.pr_solver(graph, variant=variant, layout=layout, device="cpu")
     got = P.take()
