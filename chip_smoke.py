@@ -120,9 +120,15 @@ result:
      with CUDA events beside ELL-only applies (original and relabelled
      ids);
   14. SSSP: bf, delta, hybrid and nearfar on weighted R-MAT-16 against
-     the serial Dijkstra, exactly; the port's bench (--kernel sssp,
-     nearfar on the weighted grid of side 1024) with its rounds, its
-     distances equal to scipy's Dijkstra;
+     the serial Dijkstra, exactly, with kernel F1's launches (one a
+     sparse round: launches.relax = sssp.rounds_sparse; none in
+     nearfar); the port's bench (--kernel sssp, nearfar on the weighted
+     grid of side 1024) with its rounds, its distances equal to scipy's
+     Dijkstra; F1 (ops/relax.sparse_relax) against its plain version,
+     exactly, on every sparse round of a delta-stepping solve on
+     kron20w (graphbench's configuration at scale 20), and timed beside
+     its bytes bound and the plain version on the widest and the median
+     of those rounds;
   15. the port's MST bench at R-MAT-20, its weight equal to scipy's
      minimum_spanning_tree; the SCC bench on the directed R-MAT-20
      ('color') and the 'wcc' variant, each a bijection with scipy's
@@ -349,6 +355,14 @@ KCL_K5_SCALE = 14
 # the JAX package's spmv_ell (no Pallas kernel)
 E1_SOURCE = "gardenia_tpu_torch/csrc/ell_spmv.cu"
 E1_REPLACES = "gardenia_tpu/ops/spmv.py:26"
+# F1, SSSP's sparse relax: it replaces the XLA `sparse` branch of the JAX
+# package's bucket rounds (no Pallas kernel); timed at kron20w's shape
+# (graphbench's configuration, scale 20) on the widest and the median
+# sparse round of one delta-stepping solve from F1_SEED's source
+F1_SOURCE = "gardenia_tpu_torch/csrc/frontier_relax.cu"
+F1_REPLACES = "gardenia_tpu/solvers/sssp.py:77"
+F1_SEED = 3024000007
+F1_DELTA = 16               # the kron20-sssp cell's delta
 TRI_CHUNK = 1 << 23         # edge_triangle_counts' step on the card, wedges
 # (VC_SPARSE_CAPS, VC_CORE_CAP) that make R-MAT-16 take the tiers that no
 # default R-MAT solve takes: 78 dense and 34 sparse rounds; then 36 dense,
@@ -1181,13 +1195,17 @@ def spmv_phase(dev, gpu: str, g, hyb, k1_stats: dict) -> dict:
     return {"launches": launches["simt"], "apply_ms": ms, "busy_ms": busy}
 
 
-def sssp_phase(dev, gpu: str) -> None:
+def sssp_phase(dev, gpu: str) -> dict:
     """Phase 14: the four SSSP variants at R-MAT-16 against the serial
-    Dijkstra; the grid-1024 bench against scipy's Dijkstra."""
+    Dijkstra, with F1's launches; the grid-1024 bench against scipy's
+    Dijkstra; F1 at kron20w's shape (f1_timing).  Returns F1's entry of
+    the kernels line."""
     import scipy.sparse.csgraph as csg
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.core.generate import generate_graph
+    from gardenia_tpu_torch.ops import relax
     from gardenia_tpu_torch.solvers.sssp import sssp_solver
+    from gardenia_tpu_torch.utils import profiler
     from gardenia_tpu_torch.verify import oracles
     gw = generate_graph("rmat", scale=SMOKE_SCALE, degree=16,
                         symmetrize=True, need_reverse=True, weighted=True)
@@ -1195,19 +1213,30 @@ def sssp_phase(dev, gpu: str) -> None:
     t0 = time.perf_counter()
     want = oracles.sssp_serial(gw, src)
     t_or = time.perf_counter() - t0
+    f1_paths = {}
     for variant in ("bf", "delta", "hybrid", "nearfar"):
+        profiler.take()
+        before = relax.LAUNCHES
         t0 = time.perf_counter()
-        res = sssp_solver(gw, src, SSSP_SMOKE_DELTA, variant=variant,
-                          device=dev)
+        with profiler.recording():
+            res = sssp_solver(gw, src, SSSP_SMOKE_DELTA, variant=variant,
+                              device=dev)
         secs = time.perf_counter() - t0
+        sparse = profiler.take()["counters"].get("sssp.rounds_sparse", 0)
+        f1 = relax.LAUNCHES - before
         same = bool((res.dist.cpu().numpy() == want).all())
         print(f"[14] sssp {variant} rmat{SMOKE_SCALE} weighted from {src}, "
               f"delta {SSSP_SMOKE_DELTA}: {res.iterations} rounds in "
               f"{secs:.2f} s (first solve), distances "
               f"{'equal' if same else 'NOT equal'} to the serial Dijkstra "
-              f"({t_or:.1f} s)")
+              f"({t_or:.1f} s); F1 launches {f1}, sparse rounds {sparse}")
         if not same or res.dist.dtype.itemsize != 4:
             fail(f"sssp {variant} disagrees with the serial Dijkstra")
+        if f1 != sparse or (variant != "nearfar") != (f1 > 0):
+            fail(f"sssp {variant}: {f1} F1 launches for {sparse} sparse "
+                 f"rounds")
+        if f1:
+            f1_paths[f"sssp {variant} rmat{SMOKE_SCALE}"] = f1
     record, gg, res = bench.bench_sssp(MAIN_SCALE, dev)
     print(json.dumps(record))
     t0 = time.perf_counter()
@@ -1222,6 +1251,89 @@ def sssp_phase(dev, gpu: str) -> None:
           f"({time.perf_counter() - t0:.1f} s); gpu: {gpu}")
     if not same:
         fail("the SSSP bench disagrees with scipy's Dijkstra")
+    return f1_timing(dev, gpu, f1_paths)
+
+
+def f1_bytes(m: int, n_active: int, scout: int) -> int:
+    """What F1's round must move at least: the mask (1 B a vertex), deg
+    and dist read and new written (12 B a vertex), rowptr's start of each
+    active vertex (8 B), and each edge slot's column id and weight
+    (8 B)."""
+    return 13 * m + 8 * n_active + 8 * scout
+
+
+def f1_timing(dev, gpu: str, paths: dict) -> dict:
+    """F1 on kron20w (graphbench's configuration, scale 20): one
+    delta-stepping solve from a seeded source of non-zero degree with
+    every sparse round's inputs kept; F1 held to its plain version on
+    each, exactly; then F1 and the plain version timed on the widest and
+    the median round by CUDA events, beside f1_bytes over the card's
+    bandwidth.  The kernels line's entry."""
+    import torch
+    from graphbench import generators, manifest, run as gb_run
+    from gardenia_tpu_torch.ops import relax
+    from gardenia_tpu_torch.solvers import sssp as ssssp
+    cfg = manifest.config(manifest.load_benchmark(), "kron20w")
+    t0 = time.perf_counter()
+    g = gb_run.build_graph(generators.generate(cfg, F1_SEED, dev), cfg)
+    deg = np.asarray(g.degrees)
+    src = int(np.random.default_rng(F1_SEED).choice(np.flatnonzero(deg)))
+    rounds = []
+    sparse = ssssp.Relaxer.sparse
+
+    def keep(self, dist, active, n_active, scout):
+        rounds.append((dist.clone(), active.clone(), n_active, scout))
+        return sparse(self, dist, active, n_active, scout)
+    ssssp.Relaxer.sparse = keep
+    try:
+        before = relax.LAUNCHES
+        res = ssssp.sssp_solver(g, src, F1_DELTA, device=dev)
+        solve_f1 = relax.LAUNCHES - before
+    finally:
+        ssssp.Relaxer.sparse = sparse
+    r = ssssp.Relaxer.of(g, dev)
+    csr = (r.rowptr, r.colidx, r.wi, r.deg)
+    print(f"[14] F1 on kron20w (seed {F1_SEED}): |V| {g.m} |E| {g.nnz}, "
+          f"from {src}: {res.iterations} rounds, {len(rounds)} sparse "
+          f"(F1 launches {solve_f1}), threshold {g.nnz // ssssp.ALPHA} "
+          f"edges ({time.perf_counter() - t0:.1f} s with the build)")
+    if solve_f1 != len(rounds) or not rounds:
+        fail(f"F1 launched {solve_f1} times for {len(rounds)} sparse rounds")
+    for i, (dist, active, n_active, scout) in enumerate(rounds):
+        got = relax.sparse_relax(dist, active, n_active, scout, *csr)
+        want = relax.sparse_relax_plain(dist, active, n_active, scout, *csr)
+        if not torch.equal(got, want):
+            fail(f"F1 differs from its plain version in sparse round {i} "
+                 f"(scout {scout}): {int((got != want).sum())} vertices")
+    by_scout = sorted(range(len(rounds)), key=lambda i: rounds[i][3])
+    shapes = {"widest": by_scout[-1], "median": by_scout[len(rounds) // 2]}
+    timed = {}
+    for label, i in shapes.items():
+        dist, active, n_active, scout = rounds[i]
+        args = (dist, active, n_active, scout, *csr)
+        ms, _ = turns({"kernel": lambda: relax.sparse_relax(*args),
+                       "plain": lambda: relax.sparse_relax_plain(*args)},
+                      reps={"kernel": 50, "plain": 10})
+        nbytes = f1_bytes(g.m, n_active, scout)
+        timed[label] = {"n_active": n_active, "scout": scout,
+                        "ms": ms["kernel"], "plain_ms": ms["plain"],
+                        "bytes": nbytes,
+                        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        print(f"[14] F1 {label} sparse round: {n_active} active, {scout} "
+              f"edges: F1 {ms['kernel']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, bound {timed[label]['bound_ms']:.4f}"
+              f" ms ({nbytes} B); gpu: {gpu}")
+    paths[f"sssp delta kron{MAIN_SCALE}w"] = solve_f1
+    wide = timed["widest"]
+    return {"name": "frontier_relax", "route": "cuda", "source": F1_SOURCE,
+            "replaces": F1_REPLACES, "launches": sum(paths.values()),
+            "launches_by_path": paths, "kernels_a_launch": 3,
+            "sparse_rounds_held": len(rounds), "mismatches": 0,
+            "max_abs_err": 0, "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+            "bound_ms": wide["bound_ms"], "bound_by": "bytes",
+            "n_active": wide["n_active"], "scout": wide["scout"],
+            **{f"{k}_median_round": v for k, v in timed["median"].items()},
+            "library_ms": None}
 
 
 def mst_scc_phase(dev, gpu: str, g) -> None:
@@ -4210,7 +4322,7 @@ def main() -> None:
 
     # ---- 14. SSSP: four variants at R-MAT-16, the grid-1024 bench --------
     clock(14)
-    sssp_phase(dev, gpu)
+    f1_entry = sssp_phase(dev, gpu)
 
     # ---- 15. MST, SCC, clustering and random walks ------------------------
     clock(15)
@@ -4386,6 +4498,7 @@ def main() -> None:
         "library_ms": None})
     entries.append(v1_entry)
     entries.append(q1_entry)
+    entries.append(f1_entry)
     print(f"[24] the whole run: {time.perf_counter() - RUN_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

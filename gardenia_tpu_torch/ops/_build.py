@@ -185,6 +185,17 @@ def lib() -> ctypes.CDLL:
             so.gdn_ell_spmv.restype = ci
             so.gdn_ell_spmv_threads.argtypes = []
             so.gdn_ell_spmv_threads.restype = ci
+            # (active, deg, rowptr, colidx, w, dist, new, m, scout,
+            #  scratch, stream)
+            so.gdn_frontier_relax.argtypes = [vp] * 7 + [ll, ll, vp, vp]
+            so.gdn_frontier_relax.restype = ci
+            so.gdn_frontier_relax_scratch.argtypes = [ll]
+            so.gdn_frontier_relax_scratch.restype = ll
+            for name in ("gdn_frontier_relax_threads",
+                         "gdn_frontier_relax_slots"):
+                fn = getattr(so, name)
+                fn.argtypes = []
+                fn.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

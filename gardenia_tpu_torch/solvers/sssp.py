@@ -17,10 +17,10 @@ Variants:
               package already drives from the host).
   'nearfar' — near-far delta-stepping on compact queues
               (solvers/sssp_nf.py).
-A round relaxes its active vertices by a compacted expansion of their
-out-edges and a scatter-min when they have at most nnz // alpha out-edges
-(alpha = 15), else by a dense masked min-plus sweep over the weighted
-in-ELL.
+A round relaxes its active vertices' out-edges by a scatter-min when they
+have at most nnz // alpha out-edges (alpha = 15; ops/relax: kernel F1 on
+a card, the compacted expansion on the CPU), else by a dense masked
+min-plus sweep over the weighted in-ELL.
 
 The JAX solver fuses its rounds in one lax.while_loop with lax.cond
 choosing the branch.  Here the loop runs on the host and reads back once
@@ -47,8 +47,8 @@ import torch
 from gardenia_tpu_torch import resolve_device
 from gardenia_tpu_torch.core import types as T
 from gardenia_tpu_torch.core import views
-from gardenia_tpu_torch.ops.frontier import (compact_mask,
-                                             expand_frontier_edges)
+from gardenia_tpu_torch.ops.frontier import expand_frontier_edges
+from gardenia_tpu_torch.ops.relax import sparse_relax
 from gardenia_tpu_torch.ops.semiring import I32_MIN_PLUS
 from gardenia_tpu_torch.ops.spmv import spmv_ell
 from gardenia_tpu_torch.utils.profiler import count, host_read, span, spanned
@@ -91,12 +91,13 @@ class Relaxer:
                                                  ids, n_edges)
         return dst, dist[src.long()] + self.wi[eid]
 
-    def sparse(self, dist, ids, n_edges: int) -> torch.Tensor:
-        """dist with the out-edges of `ids` relaxed by a scatter-min."""
-        if n_edges == 0:
-            return dist
-        dst, nd = self.edges(dist, ids, n_edges)
-        return dist.scatter_reduce(0, dst.long(), nd, "amin")
+    def sparse(self, dist, active, n_active: int, scout: int
+               ) -> torch.Tensor:
+        """dist with the out-edges of the `active` vertices (n_active of
+        them, scout out-edges) relaxed by a scatter-min: kernel F1 on a
+        card (ops/relax)."""
+        return sparse_relax(dist, active, n_active, scout, self.rowptr,
+                            self.colidx, self.wi, self.deg)
 
     def dense(self, dist, active=None) -> torch.Tensor:
         """dist relaxed over every in-edge whose source is active (all
@@ -138,8 +139,7 @@ def _bucket_rounds(g, source: int, delta: int, *, use_delta: bool,
             if scout <= threshold:
                 count("sssp.rounds_sparse")
                 count("sssp.edges_sparse", scout)
-                new = r.sparse(dist, compact_mask(active, n_active, g.m),
-                               scout)
+                new = r.sparse(dist, active, n_active, scout)
             else:
                 count("sssp.rounds_dense")
                 new = r.dense(dist, active)

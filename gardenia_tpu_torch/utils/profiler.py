@@ -71,7 +71,8 @@ _LAUNCH_COUNTERS = (("panel", "LAUNCHES", "launches.panel"),
                      "launches.minselect.minplus"),
                     ("kcl_count", "LAUNCHES", "launches.kcl_count"),
                     ("vc_core", "LAUNCHES", "launches.vc_core"),
-                    ("spmv", "LAUNCHES", "launches.spmv"))
+                    ("spmv", "LAUNCHES", "launches.spmv"),
+                    ("relax", "LAUNCHES", "launches.relax"))
 
 
 class _Span:

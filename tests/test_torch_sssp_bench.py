@@ -153,9 +153,10 @@ def test_the_round_loop_records_one_read_a_round(weighted, alpha,
     scouts = []
     sparse = tsssp.Relaxer.sparse
 
-    def spy(self, dist, ids, n_edges):
-        scouts.append(n_edges)
-        return sparse(self, dist, ids, n_edges)
+    def spy(self, dist, active, n_active, scout):
+        scouts.append(scout)
+        assert n_active == int(active.sum())
+        return sparse(self, dist, active, n_active, scout)
     monkeypatch.setattr(tsssp.Relaxer, "sparse", spy)
     P.take()
     with P.recording():
