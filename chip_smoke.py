@@ -1722,7 +1722,7 @@ def symgs_phase(dev, gpu: str, g, g16) -> None:
     bench against an independent f64 sweep.  Each within the CLI's l2 <
     1e-4 and SYMGS_F64_L2, on colours that vc_check holds proper."""
     from gardenia_tpu_torch import bench
-    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
+    from gardenia_tpu_torch.solvers.symgs import fill_inputs, symgs_solver
     from gardenia_tpu_torch.verify import l2_error, oracles
 
     def check(label, graph, colors, x, want, ref, t0):
@@ -1740,7 +1740,7 @@ def symgs_phase(dev, gpu: str, g, g16) -> None:
                 or x.shape != (graph.m,) or not np.isfinite(x).all()):
             fail(f"symgs {label} disagrees with its f64 reference: l2 {err}")
 
-    Ax, x0, b, diag, colors = default_inputs(g16, dev)
+    Ax, x0, b, diag, colors = fill_inputs(g16, device=dev)
     res = symgs_solver(g16, Ax, x0, b, diag, colors, device=dev)
     order = np.argsort(colors, kind="stable")
     offsets = np.concatenate([[0], np.cumsum(np.bincount(colors))])
@@ -1751,7 +1751,7 @@ def symgs_phase(dev, gpu: str, g, g16) -> None:
     record, _, res = bench.bench_symgs(MAIN_SCALE, dev, g=g)
     print(json.dumps(record))
     t0 = time.perf_counter()
-    inputs = default_inputs(g, dev)
+    inputs = fill_inputs(g, device=dev)
     want = symgs_reference(g, *inputs)
     check(f"bench rmat{MAIN_SCALE}", g, inputs[4], res.x.cpu().numpy(), want,
           "the f64 per-colour sweep", t0)

@@ -476,12 +476,12 @@ def bench_vc(scale: int, device="cuda", g=None):
 def bench_symgs(scale: int, device="cuda", g=None):
     """(record, graph, last SymGSResult) of the SymGS benchmark (bench.py:
     500-522); the colouring is set-up, not timed."""
-    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
+    from gardenia_tpu_torch.solvers.symgs import fill_inputs, symgs_solver
     from gardenia_tpu_torch.utils.timer import time_op
     dev = resolve_device(device)
     if g is None:
         g = get_graph(scale)
-    inputs = default_inputs(g, dev)
+    inputs = fill_inputs(g, device=dev)
     res, secs = time_op(lambda: symgs_solver(g, *inputs, device=dev),
                         warmup=WARMUP, iters=ITERS, device=dev)
     gflops = 4 * g.nnz / secs / 1e9

@@ -287,8 +287,8 @@ def run_symgs(args, device, variant="base") -> bool:
         raise ValueError(f"unknown symgs variant {variant!r} (only 'base')")
     print("Symmetric Gauss-Seidel smoother by gardenia_tpu_torch")
     g, _ = _load(args, symmetrize_default=True)
-    from gardenia_tpu_torch.solvers.symgs import default_inputs, symgs_solver
-    Ax, x0, b, diag, colors = default_inputs(g, device)
+    from gardenia_tpu_torch.solvers.symgs import fill_inputs, symgs_solver
+    Ax, x0, b, diag, colors = fill_inputs(g, device=device)
     res, secs = time_op(lambda: symgs_solver(g, Ax, x0, b, diag, colors,
                                              device=device), device=device)
     report_runtime(variant, secs)

@@ -22,8 +22,7 @@ import torch
 
 from gardenia_tpu_torch.parallel import partition
 from gardenia_tpu_torch.parallel.spmv import _padded
-from gardenia_tpu_torch.solvers.symgs import (SymGSResult, default_inputs,
-                                              fill_inputs)
+from gardenia_tpu_torch.solvers.symgs import SymGSResult, fill_inputs
 
 
 def symgs_solver_dist(g, Ax=None, x=None, b=None, diag=None, colors=None,
@@ -36,12 +35,9 @@ def symgs_solver_dist(g, Ax=None, x=None, b=None, diag=None, colors=None,
     from gardenia_tpu_torch.core.relabel import degree_relabel
     from gardenia_tpu_torch.ops.bsr import spmv_hybrid
     dev = mesh.device
-    if all(a is None for a in (Ax, x, b, diag, colors)):
-        # the same arrays as fill_inputs', once a graph: the shard is reused
-        Ax, x, b, diag, colors = default_inputs(g, dev)
-    else:
-        Ax, x, b, diag, colors = fill_inputs(g, Ax, x, b, diag, colors,
-                                             device=dev)
+    # what is filled is made once a graph, so the shard is reused
+    Ax, x, b, diag, colors = fill_inputs(g, Ax, x, b, diag, colors,
+                                         device=dev)
     num_colors = int(np.max(colors)) + 1
 
     def mk():

@@ -18,7 +18,13 @@ x at its columns, a product with its values, a segment sum per row and
 one write of its rows.  The order of rows inside a block is free, so
 this computes the same function.  The colour-ordered matrix is built on
 the host and cached per graph and per id of Ax, colors, b and diag (the
-SpMV solver's cache rule, Graph._dev's retain=).
+SpMV solver's cache rule, Graph._dev's retain=); the inputs the solver
+fills itself are made once per graph (fill_inputs), so repeated calls
+reuse one colouring and one ordered system.
+
+While the recorder (utils/profiler) is on, each colour block's sweep is a
+span `symgs.block`, counted in `symgs.blocks`, and its arcs are added to
+`symgs.arcs`: 2 x num_colors blocks and 2 x nnz arcs an application.
 
 As in the JAX solver, the reference driver's implicit zero diagonal is
 replaced by a diagonally dominant system (diag = degree + 1) so that the
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
-from gardenia_tpu_torch.utils.profiler import spanned
+from gardenia_tpu_torch.utils.profiler import count, span, spanned
 
 
 class SymGSResult(NamedTuple):
@@ -97,33 +103,38 @@ def sweep(sys: ColorOrdered, x: torch.Tensor, block) -> None:
                 xs, out=xs)
 
 
-def fill_inputs(g, Ax=None, x=None, b=None, diag=None, colors=None, *,
-                device="cuda"):
-    """(Ax, x, b, diag, colors), numpy, with the missing ones filled as the
-    JAX solver fills them (gardenia_tpu/solvers/symgs.py:39-60): Ax, x, b
-    uniform [0, 1) from default_rng(13), in that order, each drawn only
-    when not given; diag = degree + 1; the port's colouring on `device`."""
+def _draw(g, missing, device):
+    """The inputs fill_inputs makes, in its order: None where not missing."""
     rng = np.random.default_rng(13)
-    if Ax is None:
-        Ax = rng.random(g.nnz).astype(np.float32)
-    if x is None:
-        x = rng.random(g.m).astype(np.float32)
-    if b is None:
-        b = rng.random(g.m).astype(np.float32)
-    if diag is None:
-        diag = (g.degrees + 1).astype(np.float32)
-    if colors is None:
+    miss_ax, miss_x, miss_b, miss_diag, miss_colors = missing
+    Ax = rng.random(g.nnz).astype(np.float32) if miss_ax else None
+    x = rng.random(g.m).astype(np.float32) if miss_x else None
+    b = rng.random(g.m).astype(np.float32) if miss_b else None
+    diag = (g.degrees + 1).astype(np.float32) if miss_diag else None
+    colors = None
+    if miss_colors:
         from gardenia_tpu_torch.solvers.vc import vc_solver
         colors = vc_solver(g, device=device).colors.cpu().numpy()
     return Ax, x, b, diag, colors
 
 
-def default_inputs(g, device):
-    """fill_inputs(g) of the CLI and the bench (gardenia_tpu/cli.py:
-    203-223, bench.py:500-522), cached on the graph, so that later calls
-    hand the solver the same arrays and it reuses its ordered system."""
-    return g._dev(("torch", "symgs_inputs", str(torch.device(device))),
-                  lambda: fill_inputs(g, device=device))
+def fill_inputs(g, Ax=None, x=None, b=None, diag=None, colors=None, *,
+                device="cuda"):
+    """(Ax, x, b, diag, colors), numpy, with the missing ones filled as the
+    JAX solver fills them (gardenia_tpu/solvers/symgs.py:39-60): Ax, x, b
+    uniform [0, 1) from default_rng(13), in that order, each drawn only
+    when not given; diag = degree + 1; the port's colouring on `device`.
+    What is filled is made once per graph, device and set of missing
+    arguments (which fixes the draws) and cached on the graph, so that
+    later calls get the same arrays and the solver reuses its ordered
+    system."""
+    given = (Ax, x, b, diag, colors)
+    missing = tuple(a is None for a in given)
+    if not any(missing):
+        return given
+    drawn = g._dev(("torch", "symgs_inputs", str(torch.device(device)),
+                    missing), lambda: _draw(g, missing, device))
+    return tuple(d if miss else a for a, d, miss in zip(given, drawn, missing))
 
 
 @spanned("solve.symgs")
@@ -148,7 +159,10 @@ def symgs_solver(g, Ax: Optional[np.ndarray] = None,
     xo = torch.as_tensor(np.asarray(x, np.float32)).to(dev)[sys.order]
     # forward (omp_base.cc:38-39), then backward (:40-41)
     for block in sys.blocks + sys.blocks[::-1]:
-        sweep(sys, xo, block)
+        with span("symgs.block"):
+            sweep(sys, xo, block)
+        count("symgs.blocks")
+        count("symgs.arcs", block[4] - block[3])
     out = torch.empty_like(xo)
     out[sys.order] = xo
     return SymGSResult(out, num_colors)

@@ -19,6 +19,8 @@ Where the port records (names fixed in PERF.md §3):
   solve.<kernel>    every *_solver call (`spanned`)
   pr.iteration      an iteration of solvers/pr's loops
   bfs.level         a level of solvers/bfs's host loops
+  symgs.block       a colour block's sweep in solvers/symgs (two a colour
+                    an application); counters symgs.blocks and symgs.arcs
   read              `host_read`: a device-to-host read the host waits on,
                     also counted as host_reads
   layout.<kind>     a build on a miss of core/graph.Graph._dev, the cache
