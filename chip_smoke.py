@@ -158,6 +158,14 @@ result:
      symgs) at R-MAT-20 against an independent float64 sweep of scipy's
      colour-ordered CSR; each within the CLI's l2 < 1e-4 and an f32
      sweep's 1e-10 (SYMGS_F64_L2), on colours held proper by vc_check;
+     kernel GS1 (one launch a colour block) at hpcg20's shape, held to
+     its plain version block by block (1e-6 relative), symgs_solver on
+     the same inputs against the plain route's x, and timed: one
+     application's launches beside the plain sweep, its
+     torch.segment_reduce calls alone and the bytes bound; GS1's
+     launches set to 0 before each of the three solver paths (R-MAT-16,
+     the R-MAT-20 bench, hpcg20) and read after, each one a colour block
+     of each half of each solve;
   18. SGD at R-MAT-16, 4 epochs, trace and factors against a float64
      numpy/scipy replica of the epoch; the bench (--kernel sgd) at
      R-MAT-20, 10 epochs, its trace finite and monotone, its final RMSE
@@ -373,6 +381,14 @@ VC_FORCED_TIERS = (((1 << 14, 1 << 17), 0), ((1 << 15, 1 << 19), 512))
 # (some 1e-5) does not; measured 1.1e-16 at R-MAT-16 and 7.8e-17 at
 # R-MAT-20 on an H100 80GB HBM3 at 700 W
 SYMGS_F64_L2 = 1e-10
+# GS1, the sweep of one SymGS colour block: it replaces one masked slab
+# SpMV of the JAX package's symgs_solver (XLA, no Pallas kernel); held to
+# its plain version block by block (only a row's sum order differs) and
+# timed at hpcg20's shape (graphbench's configuration, scale 20)
+GS1_SOURCE = "gardenia_tpu_torch/csrc/symgs_sweep.cu"
+GS1_REPLACES = "gardenia_tpu/solvers/symgs.py:78"
+GS1_REL = 1e-6
+GS1_SEED = 3027000017
 # SGD at R-MAT-16 against its f64 replica: 4 epochs; the limits sit above
 # f32 rounding (on the CPU the port's f32 epoch differs from the replica
 # by 8e-8 in the trace and 6e-6 in the factors, relative to their max),
@@ -1717,10 +1733,133 @@ def symgs_reference(g, Ax, x0, b, diag, colors) -> np.ndarray:
     return x
 
 
-def symgs_phase(dev, gpu: str, g, g16) -> None:
+def gs1_solve(label: str, solves: int, blocks: int, fn):
+    """fn() (`solves` calls of symgs_solver on the card) with GS1's
+    launch counter set to 0 first: fail unless it launched GS1 once a
+    colour block of each half, solves x 2 x `blocks` (the non-empty
+    colours); (fn's result, the launches)."""
+    from gardenia_tpu_torch.ops import symgs_sweep as sw
+    sw.LAUNCHES = 0
+    out = fn()
+    want = solves * 2 * blocks
+    print(f"[17] GS1 through symgs_solver, {label}: {sw.LAUNCHES} launches "
+          f"({solves} solves x 2 x {blocks} colour blocks: {want})")
+    if sw.LAUNCHES != want:
+        fail(f"symgs {label}: {sw.LAUNCHES} GS1 launches, not one a colour "
+             f"block of each half ({want}): a block left GS1's route")
+    return out, sw.LAUNCHES
+
+
+def gs1_timing(dev, gpu: str) -> dict:
+    """GS1 on hpcg20 (graphbench's configuration, scale 20: HPCG's
+    27-point matrix, diagonal 26, -1 off it, b its row sums, x0 uniform):
+    the port's colouring and colour-ordered system; GS1 held to its plain
+    version block by block through one application (GS1_REL relative to
+    the block's largest |x|); symgs_solver on the same inputs, which has
+    to launch GS1 once a block (gs1_solve) and give the plain route's x
+    within GS1_REL; then one application's 2 x colours blocks timed by
+    CUDA events through GS1's C entry alone (the kernel), through
+    sweep_block (the wrapper the solver calls), through the plain sweep,
+    and through its torch.segment_reduce calls alone (the library call the
+    port no longer makes on the card), beside the bytes an application
+    needs over the card's bandwidth.  The kernels line's entry, its
+    launches those of the solve."""
+    import torch
+    from graphbench import generators, manifest, run as gb_run
+    from gardenia_tpu_torch.ops import _build, symgs_sweep as sw
+    from gardenia_tpu_torch.solvers import symgs as ssymgs
+    from gardenia_tpu_torch.solvers.vc import vc_solver
+    cfg = manifest.config(manifest.load_benchmark(), "hpcg20")
+    t0 = time.perf_counter()
+    g = gb_run.build_graph(generators.generate(cfg, GS1_SEED, dev), cfg)
+    deg = np.asarray(g.degrees)
+    Ax = np.full(g.nnz, -1.0, np.float32)
+    diag = np.full(g.m, 26.0, np.float32)
+    b = (26.0 - deg).astype(np.float32)
+    colors = vc_solver(g, device=dev).colors.cpu().numpy()
+    sys_ = ssymgs.color_ordered(g, Ax, b, diag, colors, dev)
+    args = (sys_.col, sys_.val, sys_.b, sys_.diag, sys_.update)
+    blocks = sys_.blocks + sys_.blocks[::-1]
+    x0 = torch.rand(g.m, generator=torch.Generator().manual_seed(
+        GS1_SEED)).numpy()
+    x0o = torch.from_numpy(x0).to(dev)[sys_.order]
+    rows = [blk[1] - blk[0] for blk in sys_.blocks]
+    print(f"[17] GS1 on hpcg20 (seed {GS1_SEED}): |V| {g.m} |E| {g.nnz}, "
+          f"{len(sys_.blocks)} colours, rows a block {min(rows)}..."
+          f"{max(rows)}, widest row {max(blk[5] for blk in blocks)} "
+          f"({time.perf_counter() - t0:.1f} s with the build)")
+    x, worst = x0o.clone(), 0.0
+    for blk in blocks:
+        r0, r1 = blk[:2]
+        want, got = x.clone(), x.clone()
+        sw.sweep_block_plain(*args, want, blk)
+        sw.sweep_block(*args, got, blk)
+        rel = float((got - want).abs().max()
+                    / want[r0:r1].abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        x = want
+    plain_x = torch.empty_like(x)
+    plain_x[sys_.order] = x
+    res, launches = gs1_solve(
+        "hpcg20", 1, len(sys_.blocks),
+        lambda: ssymgs.symgs_solver(g, Ax, x0, b, diag, colors, device=dev))
+    solve_rel = float((res.x - plain_x).abs().max()
+                      / plain_x.abs().max().clamp_min(1e-30))
+    print(f"[17] GS1 block by block: worst block rel {worst:.3e}; the solve "
+          f"against the plain route's x: rel {solve_rel:.3e} (limit "
+          f"{GS1_REL})")
+    if not (worst <= GS1_REL and solve_rel <= GS1_REL):
+        fail(f"GS1 on hpcg20: worst block rel {worst:.3e}, the solve's x "
+             f"rel {solve_rel:.3e} against the plain route (limit {GS1_REL})")
+    so = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    xs = x0o.clone()
+    raw = [(blk[2].data_ptr(), *(t.data_ptr() for t in args),
+            xs.data_ptr(), blk[0], blk[1] - blk[0], blk[3],
+            sw.group_lanes(blk[5]), stream) for blk in blocks]
+
+    def kernel():
+        for a in raw:
+            so.gdn_symgs_sweep(*a)
+
+    def through(fn):
+        def go():
+            for blk in blocks:
+                fn(*args, xs, blk)
+        return go
+    prods = [(args[1][blk[3]:blk[4]] * xs[args[0][blk[3]:blk[4]]], blk[2])
+             for blk in blocks]
+    ms, _ = turns({"kernel": kernel, "plain": through(sw.sweep_block_plain)},
+                  reps={"kernel": 50, "plain": 10})
+    wrapper_ms = cuda_ms(through(sw.sweep_block), reps=50)
+    library_ms = cuda_ms(lambda: [torch.segment_reduce(
+        p, "sum", offsets=o, initial=0.0) for p, o in prods], reps=10)
+    nbytes = 2 * (8 * g.nnz + 16 * g.m)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[17] GS1 one application ({len(blocks)} launches): "
+          f"{ms['kernel']:.4f} ms (through sweep_block {wrapper_ms:.4f}), "
+          f"plain sweep {ms['plain']:.4f} ms, torch.segment_reduce alone "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B); "
+          f"worst block rel {worst:.2e}; gpu: {gpu}")
+    return {"name": "symgs_sweep", "route": "cuda", "source": GS1_SOURCE,
+            "replaces": GS1_REPLACES, "launches": launches,
+            "launches_by_path": {"symgs hpcg20 solve": launches},
+            "colors": len(sys_.blocks), "mismatches": 0,
+            "max_rel_err": worst, "solve_rel_err": solve_rel,
+            "ms": ms["kernel"], "wrapper_ms": wrapper_ms,
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes,
+            "library": "torch.segment_reduce (the plain sweep's row sums)",
+            "library_ms": library_ms}
+
+
+def symgs_phase(dev, gpu: str, g, g16) -> dict:
     """Phase 17: SymGS at R-MAT-16 against the serial sweep; the R-MAT-20
     bench against an independent f64 sweep.  Each within the CLI's l2 <
-    1e-4 and SYMGS_F64_L2, on colours that vc_check holds proper."""
+    1e-4 and SYMGS_F64_L2, on colours that vc_check holds proper, and
+    each launching GS1 once a colour block of each solve (gs1_solve).
+    Then GS1 at hpcg20's shape (gs1_timing): the kernels line's entry,
+    with the launches of all three paths."""
     from gardenia_tpu_torch import bench
     from gardenia_tpu_torch.solvers.symgs import fill_inputs, symgs_solver
     from gardenia_tpu_torch.verify import l2_error, oracles
@@ -1741,20 +1880,30 @@ def symgs_phase(dev, gpu: str, g, g16) -> None:
             fail(f"symgs {label} disagrees with its f64 reference: l2 {err}")
 
     Ax, x0, b, diag, colors = fill_inputs(g16, device=dev)
-    res = symgs_solver(g16, Ax, x0, b, diag, colors, device=dev)
+    res, n16 = gs1_solve(
+        f"rmat{SMOKE_SCALE}", 1, np.unique(colors).size,
+        lambda: symgs_solver(g16, Ax, x0, b, diag, colors, device=dev))
     order = np.argsort(colors, kind="stable")
     offsets = np.concatenate([[0], np.cumsum(np.bincount(colors))])
     t0 = time.perf_counter()
     expect = oracles.symgs_serial(g16, order, Ax, diag, x0, b, offsets)
     check(f"rmat{SMOKE_SCALE}", g16, colors, res.x.cpu().numpy(), expect,
           "the serial sweep", t0)
-    record, _, res = bench.bench_symgs(MAIN_SCALE, dev, g=g)
+    inputs = fill_inputs(g, device=dev)
+    solves = max(0, bench.WARMUP) + max(1, bench.ITERS)
+    (record, _, res), n20 = gs1_solve(
+        f"bench rmat{MAIN_SCALE}", solves, np.unique(inputs[4]).size,
+        lambda: bench.bench_symgs(MAIN_SCALE, dev, g=g))
     print(json.dumps(record))
     t0 = time.perf_counter()
-    inputs = fill_inputs(g, device=dev)
     want = symgs_reference(g, *inputs)
     check(f"bench rmat{MAIN_SCALE}", g, inputs[4], res.x.cpu().numpy(), want,
           "the f64 per-colour sweep", t0)
+    entry = gs1_timing(dev, gpu)
+    entry["launches_by_path"].update({f"symgs rmat{SMOKE_SCALE} solve": n16,
+                                      f"symgs bench rmat{MAIN_SCALE}": n20})
+    entry["launches"] = sum(entry["launches_by_path"].values())
+    return entry
 
 
 def sgd_reference(gr, epochs: int, step: float, lam: float):
@@ -4334,7 +4483,7 @@ def main() -> None:
 
     # ---- 17. SymGS: the serial sweep at R-MAT-16, the R-MAT-20 bench ------
     clock(17)
-    symgs_phase(dev, gpu, g, g16)
+    gs1_entry = symgs_phase(dev, gpu, g, g16)
 
     # ---- 18. SGD: the f64 replica at R-MAT-16, the R-MAT-20 bench ---------
     clock(18)
@@ -4499,6 +4648,7 @@ def main() -> None:
     entries.append(v1_entry)
     entries.append(q1_entry)
     entries.append(f1_entry)
+    entries.append(gs1_entry)
     print(f"[24] the whole run: {time.perf_counter() - RUN_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -196,6 +196,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = []
                 fn.restype = ci
+            # (offsets, col, val, b, diag, update, x, r0, rows, e0,
+            #  lanes, stream)
+            so.gdn_symgs_sweep.argtypes = [vp] * 7 + [ll, ll, ll, ci, vp]
+            so.gdn_symgs_sweep.restype = ci
             so.gdn_error_string.argtypes = [ci]
             so.gdn_error_string.restype = ctypes.c_char_p
             _LIB = so

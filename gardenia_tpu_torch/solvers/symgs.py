@@ -13,10 +13,12 @@ SpMVs over the whole matrix.  Here the rows are sorted by colour, as the
 reference driver sorts them into `indices` + `color_offsets`
 (src/symgs/main.cc:52-61): a stable argsort of the colours, one
 colour-ordered CSR of the rows with their values, and x kept in that
-order, so a block is a contiguous slice of rows and edges — a gather of
-x at its columns, a product with its values, a segment sum per row and
-one write of its rows.  The order of rows inside a block is free, so
-this computes the same function.  The colour-ordered matrix is built on
+order, so a block is a contiguous slice of rows and edges, swept in place
+by ops/symgs_sweep.sweep_block: kernel GS1 (csrc/symgs_sweep.cu), one
+launch a block, on a card; on the CPU the plain version, a gather of x at
+its columns, a product with its values, a segment sum per row and one
+write of its rows.  The order of rows inside a block is free, so this
+computes the same function.  The colour-ordered matrix is built on
 the host and cached per graph and per id of Ax, colors, b and diag (the
 SpMV solver's cache rule, Graph._dev's retain=); the inputs the solver
 fills itself are made once per graph (fill_inputs), so repeated calls
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from gardenia_tpu_torch import resolve_device
+from gardenia_tpu_torch.ops.symgs_sweep import check_proper, sweep_block
 from gardenia_tpu_torch.utils.profiler import count, span, spanned
 
 
@@ -52,20 +55,28 @@ class SymGSResult(NamedTuple):
 class ColorOrdered:
     """The colour-ordered system on one device."""
     order: torch.Tensor    # i64[m]: row of the original id at each position
-    col: torch.Tensor      # i64[nnz]: column positions in the ordered x
+    col: torch.Tensor      # i32[nnz]: column positions in the ordered x
     val: torch.Tensor      # f32[nnz]
     b: torch.Tensor        # f32[m], ordered
     diag: torch.Tensor     # f32[m], ordered
     update: torch.Tensor   # bool[m], ordered: diag != 0
     blocks: list           # per colour: (first row, end row, its rows'
     #                        edge offsets from its first edge i64[rows+1],
-    #                        first edge, end edge); empty colours left out
+    #                        first edge, end edge, its widest row's edges);
+    #                        empty colours left out
+    num_colors: int        # the largest colour + 1 (empty ones counted)
 
 
 def color_ordered(g, Ax, b, diag, colors, device) -> ColorOrdered:
     """The system (g's structure with values Ax, b, diag) with its rows
-    sorted stably by colour and its columns renamed to positions."""
+    sorted stably by colour and its columns renamed to int32 positions.
+    Its tensors have the types GS1 takes, and its colouring is held proper
+    here (ops/symgs_sweep.check_proper, on every device), once a system,
+    so no launch checks anything."""
     m = g.m
+    if m >= 2 ** 31:
+        raise ValueError(f"SymGS takes fewer than 2^31 rows (int32 column "
+                         f"positions); got {m}")
     colors = np.asarray(colors)
     order = np.argsort(colors, kind="stable")
     pos = np.empty(m, np.int64)
@@ -77,7 +88,8 @@ def color_ordered(g, Ax, b, diag, colors, device) -> ColorOrdered:
     # the edge slots of each ordered row, in the row's CSR order
     eidx = np.repeat(rp[order] - rowptr[:-1], lens) + np.arange(
         rowptr[-1], dtype=np.int64)
-    col = pos[np.asarray(g.colidx, np.int64)[eidx]]
+    col = pos[np.asarray(g.colidx, np.int64)[eidx]].astype(np.int32)
+    check_proper(rowptr, col, colors[order])
     val = np.asarray(Ax, np.float32)[eidx]
     counts = np.bincount(colors, minlength=int(colors.max()) + 1 if m else 0)
     ends = np.cumsum(counts)
@@ -85,22 +97,12 @@ def color_ordered(g, Ax, b, diag, colors, device) -> ColorOrdered:
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     blocks = [(int(e - c), int(e), up(rowptr[e - c:e + 1] - rowptr[e - c]),
-               int(rowptr[e - c]), int(rowptr[e]))
+               int(rowptr[e - c]), int(rowptr[e]), int(lens[e - c:e].max()))
               for c, e in zip(counts, ends) if c]
     diag = np.asarray(diag, np.float32)[order]
     return ColorOrdered(up(order), up(col), up(val),
                         up(np.asarray(b, np.float32)[order]), up(diag),
-                        up(diag != 0), blocks)
-
-
-def sweep(sys: ColorOrdered, x: torch.Tensor, block) -> None:
-    """Update the rows of one colour block of the ordered x in place."""
-    r0, r1, offsets, e0, e1 = block
-    prod = sys.val[e0:e1] * x[sys.col[e0:e1]]
-    rsum = torch.segment_reduce(prod, "sum", offsets=offsets, initial=0.0)
-    xs = x[r0:r1]
-    torch.where(sys.update[r0:r1], (sys.b[r0:r1] - rsum) / sys.diag[r0:r1],
-                xs, out=xs)
+                        up(diag != 0), blocks, len(counts))
 
 
 def _draw(g, missing, device):
@@ -147,11 +149,12 @@ def symgs_solver(g, Ax: Optional[np.ndarray] = None,
     """Reference entry SymGSSolver(g, indices, Ax, x, b, color_offsets)
     (src/symgs/symgs.h:31); the missing inputs are filled by fill_inputs,
     which colours the graph with the port's vc_solver when colors is None
-    (main.cc:52-61 composes VCSolver the same way)."""
+    (main.cc:52-61 composes VCSolver the same way).  A colouring with an
+    arc inside a colour raises ValueError on every device: the blocks are
+    swept in place, which is Gauss-Seidel only for a proper colouring."""
     dev = resolve_device(device)
     Ax, x, b, diag, colors = fill_inputs(g, Ax, x, b, diag, colors,
                                          device=dev)
-    num_colors = int(np.max(colors)) + 1
     sys = g._dev(("torch", "symgs", str(dev), id(Ax), id(b), id(diag),
                   id(colors)),
                  lambda: color_ordered(g, Ax, b, diag, colors, dev),
@@ -160,9 +163,10 @@ def symgs_solver(g, Ax: Optional[np.ndarray] = None,
     # forward (omp_base.cc:38-39), then backward (:40-41)
     for block in sys.blocks + sys.blocks[::-1]:
         with span("symgs.block"):
-            sweep(sys, xo, block)
+            sweep_block(sys.col, sys.val, sys.b, sys.diag, sys.update, xo,
+                        block)
         count("symgs.blocks")
         count("symgs.arcs", block[4] - block[3])
     out = torch.empty_like(xo)
     out[sys.order] = xo
-    return SymGSResult(out, num_colors)
+    return SymGSResult(out, sys.num_colors)

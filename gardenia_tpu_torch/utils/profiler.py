@@ -21,6 +21,8 @@ Where the port records (names fixed in PERF.md §3):
   bfs.level         a level of solvers/bfs's host loops
   symgs.block       a colour block's sweep in solvers/symgs (two a colour
                     an application); counters symgs.blocks and symgs.arcs
+                    (on a card launches.symgs_sweep, GS1, equals
+                    symgs.blocks)
   read              `host_read`: a device-to-host read the host waits on,
                     also counted as host_reads
   layout.<kind>     a build on a miss of core/graph.Graph._dev, the cache
@@ -74,7 +76,8 @@ _LAUNCH_COUNTERS = (("panel", "LAUNCHES", "launches.panel"),
                     ("kcl_count", "LAUNCHES", "launches.kcl_count"),
                     ("vc_core", "LAUNCHES", "launches.vc_core"),
                     ("spmv", "LAUNCHES", "launches.spmv"),
-                    ("relax", "LAUNCHES", "launches.relax"))
+                    ("relax", "LAUNCHES", "launches.relax"),
+                    ("symgs_sweep", "LAUNCHES", "launches.symgs_sweep"))
 
 
 class _Span:

@@ -120,7 +120,7 @@ def test_color_ordered_blocks_are_contiguous_colours():
     sys = symgs.color_ordered(from_csr_of(g), Ax, b, diag, colors, "cpu")
     order = sys.order.numpy()
     deg = np.diff(g.rowptr)
-    for r0, r1, offsets, e0, e1 in sys.blocks:
+    for r0, r1, offsets, e0, e1, _ in sys.blocks:
         assert len(set(colors[order[r0:r1]])) == 1
         np.testing.assert_array_equal(
             offsets.numpy(), np.concatenate([[0], np.cumsum(
